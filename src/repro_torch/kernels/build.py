@@ -1,0 +1,184 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
+for ``sm_90a`` into its own shared library under ``build/torch_ext/`` at
+the root of the checkout, then loaded with ``ctypes``.  No PyTorch header
+is compiled, which keeps a build to seconds.  A library's file name holds
+a digest of its sources and flags, so an edit never reuses a stale build.
+
+Also home of the launch counts: every kernel wrapper adds one to its entry
+in :data:`LAUNCHES` where it launches its kernel, and nowhere else.
+"""
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+REPO_ROOT = Path(__file__).resolve().parents[3]
+BUILD_DIR = REPO_ROOT / "build" / "torch_ext"
+SOURCES = {"flash_attention": "flash_attention.cu",
+           "flash_decode": "flash_decode.cu"}
+HEADERS = ("common.cuh",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-lineinfo", "-shared", "-Xcompiler", "-fPIC")
+
+#: dtype codes of csrc/common.cuh
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: head_dim values the kernels are compiled for (REPRO_DISPATCH_D)
+HEAD_DIMS = (16, 32, 64, 80, 96, 128)
+
+LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_FNS: Dict[str, object] = {}
+
+
+def reset_launches():
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+@dataclass
+class BuildResult:
+    name: str
+    path: Path
+    log: str              # nvcc's output (ptxas statistics with verbose)
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin/nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin); the CUDA "
+                       "kernels are built on a machine with the CUDA toolkit")
+
+
+def _lib_path(name: str, flags) -> Path:
+    h = hashlib.sha256()
+    for f in (SOURCES[name],) + HEADERS:
+        h.update((CSRC / f).read_bytes())
+    h.update(" ".join(flags).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
+
+
+def build(names: Optional[Iterable[str]] = None, *,
+          verbose: bool = False) -> Dict[str, BuildResult]:
+    """Compile the named kernels (default: all), one ``nvcc`` per source,
+    all started together.  Raises ``RuntimeError`` with nvcc's output if a
+    build fails."""
+    names = list(names or SOURCES)
+    flags = NVCC_FLAGS + (("-Xptxas", "-v") if verbose else ())
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = None
+    procs = {}
+    results: Dict[str, BuildResult] = {}
+    for name in names:
+        out = _lib_path(name, NVCC_FLAGS)
+        if out.exists() and not verbose:
+            results[name] = BuildResult(name, out, "")
+            continue
+        nvcc = nvcc or nvcc_path()
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        cmd = [nvcc, *flags, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE, text=True),
+                       tmp, out)
+    failures = []
+    for name, (proc, tmp, out) in procs.items():
+        stdout, stderr = proc.communicate()
+        log = (stdout + stderr).strip()
+        if proc.returncode != 0:
+            failures.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            continue
+        os.replace(tmp, out)
+        results[name] = BuildResult(name, out, log)
+    if failures:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
+    return results
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build([name])[name].path))
+        _LIBS[name] = lib
+    return lib
+
+
+def function(name: str, symbol: str, argtypes):
+    """A C entry point of kernel ``name``, typed once and cached.
+
+    ``argtypes`` must name ``c_void_p`` for every pointer and the stream,
+    or ctypes would pass them as 32-bit ints."""
+    key = f"{name}:{symbol}"
+    fn = _FNS.get(key)
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        _FNS[key] = fn
+    return fn
+
+
+def on_device(device):
+    """Make ``device`` current for a launch, unless it already is."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def check(name: str, code: int):
+    """Raise if a launch returned a CUDA error (a refused launch never runs,
+    and a later synchronize would not report it)."""
+    if code != 0:
+        err = getattr(load(name), f"repro_{name}_error")
+        err.restype = ctypes.c_char_p
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {code} "
+                           f"({err(code).decode()})")
+
+
+def validate(name: str, tensors):
+    """Common checks before a launch: CUDA, one device, a supported dtype
+    and head_dim, and a contiguous last (head_dim) axis."""
+    t0 = tensors[0]
+    if t0.device.type != "cuda":
+        raise ValueError(f"{name}: tensors must be on a CUDA device, got "
+                         f"{t0.device}")
+    dtype = t0.dtype
+    if dtype not in DTYPE_CODES:
+        raise TypeError(f"{name}: dtype {dtype} not supported "
+                        f"({sorted(map(str, DTYPE_CODES))})")
+    for t in tensors:
+        if t.device != t0.device or t.dtype != dtype:
+            raise ValueError(f"{name}: mixed devices/dtypes "
+                             f"{[(x.device, x.dtype) for x in tensors]}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: head_dim axis must be contiguous, "
+                             f"strides {t.stride()}")
+    if t0.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {t0.shape[-1]} not compiled "
+                         f"(have {HEAD_DIMS})")
+
+
+def stream_ptr(device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def strides_arg(*tensors_dims) -> ctypes.Array:
+    """Pack (tensor, dims) pairs into one int64 array of element strides."""
+    vals = [t.stride(d) for t, dims in tensors_dims for d in dims]
+    return (ctypes.c_int64 * len(vals))(*vals)

@@ -1,0 +1,51 @@
+"""Model-layout adapters around the kernels (forward only so far).
+
+Dispatch is on the tensor's device and nothing else: a CUDA tensor goes to
+the hand-written kernel (a failed build or launch raises), a CPU tensor to
+the kernel's plain version in ``kernels/ref.py``.  The backward through
+plain math (the reference's ``custom_vjp``) comes with training.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels import ref as R
+from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.flash_decode import flash_decode_fwd
+
+
+def _route(name: str, t) -> bool:
+    """True for the CUDA kernel, False for the plain version."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"{name}: no kernel for device {t.device}")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    block_q: int = 512, block_k: int = 1024):
+    """Model layout: q (B,S,H,D); k/v (B,S,KV,D) -> (B,S,H,D).
+
+    ``block_q``/``block_k`` are the clause's tile fields; the CUDA kernel
+    uses its own tiles and the plain version none, so neither reads them.
+    """
+    qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if _route("flash_attention", q):
+        o = flash_attention_fwd(qh, kh, vh, causal=causal, window=window)
+    else:
+        o = R.flash_attention_ref(qh, kh, vh, causal=causal, window=window)
+    return o.transpose(1, 2)
+
+
+def flash_decode(q, k_cache, v_cache, pos: int, *, block_k: int = 1024,
+                 return_lse: bool = False):
+    """Model layout: q (B,H,D); caches (B,Smax,KV,D); scalar ``pos``.
+
+    ``block_k`` is the clause's field; the CUDA kernel splits Smax into its
+    own chunks.
+    """
+    if _route("flash_decode", q):
+        return flash_decode_fwd(q, k_cache.transpose(1, 2),
+                                v_cache.transpose(1, 2), pos,
+                                return_lse=return_lse)
+    return R.flash_decode_ref(q, k_cache, v_cache, pos,
+                              return_lse=return_lse)

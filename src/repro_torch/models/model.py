@@ -1,0 +1,157 @@
+"""Full causal-LM assembly: embedding -> block groups -> head.
+
+The layer stack is split into homogeneous groups (``ArchConfig.stack_plan``);
+each group is one ComParX segment with its own :class:`ModelContext`.  A
+group with ``repeats > 1`` keeps its parameters and caches stacked along a
+leading ``layers`` dim, as the reference does, and runs as a Python loop
+over that dim (the reference's ``lax.scan``).  Nothing here is
+rematerialized: the port serves, it does not train yet.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig, ScanGroup
+from repro_torch.device import resolve_device
+from repro_torch.models.blocks import (block_apply, block_cache_spec,
+                                       block_decode, block_specs)
+from repro_torch.models.context import ModelContext
+from repro_torch.models.layers import norm_apply, norm_specs
+from repro_torch.models.params import (ParamSpec, TensorSpec, layer_slice,
+                                       stack_specs, tree_map)
+
+SEG_EMBED = "embed"
+SEG_HEAD = "head"
+
+
+def model_specs(cfg: ArchConfig):
+    d, V = cfg.d_model, cfg.vocab_size
+    specs = {SEG_EMBED: {"tok": ParamSpec((V, d), ("vocab", "embed"),
+                                          "normal", 1.0, cfg.dtype)}}
+    for gi, group in enumerate(cfg.stack_plan()):
+        gspec = {}
+        for j, kind in enumerate(group.pattern):
+            bs = block_specs(kind, cfg)
+            gspec[f"b{j}"] = stack_specs(bs, group.repeats) \
+                if group.repeats > 1 else bs
+        specs[f"g{gi}"] = gspec
+    head: Dict[str, object] = {"norm": norm_specs(d, cfg.norm, cfg.dtype)}
+    if not cfg.tie_embeddings:
+        head["out"] = ParamSpec((d, V), ("embed", "vocab"), "normal",
+                                d ** -0.5, cfg.dtype)
+    specs[SEG_HEAD] = head
+    return specs
+
+
+def _ctx_for(ctxs, seg: str) -> ModelContext:
+    if isinstance(ctxs, ModelContext):
+        return ctxs
+    return ctxs.get(seg, ctxs.get("*", ModelContext()))
+
+
+def _layers(tree, group: ScanGroup):
+    """Per-layer views of a group's (possibly stacked) tree."""
+    if group.repeats == 1:
+        return [tree]
+    return [layer_slice(tree, i) for i in range(group.repeats)]
+
+
+def _run_group(x, gparams, group: ScanGroup, cfg, ctx, positions):
+    """Forward one group. Returns (x, aux)."""
+    aux = 0.0
+    for layer_params in _layers(gparams, group):
+        for j, kind in enumerate(group.pattern):
+            x, a = block_apply(kind, layer_params[f"b{j}"], x, cfg, ctx,
+                               positions)
+            aux = aux + a
+    return x, aux
+
+
+def embed_tokens(params, tokens, cfg: ArchConfig, ctx: ModelContext):
+    return F.embedding(tokens, params[SEG_EMBED]["tok"])
+
+
+def _matmul_f32(x, w):
+    """x (..., d) @ w (d, V) with f32 output, accumulated in f32 from the
+    stored dtypes (the reference's ``preferred_element_type=f32``)."""
+    if x.dtype == torch.float32 and w.dtype == torch.float32:
+        return x @ w
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.is_cuda:
+        out = torch.mm(x2, w.to(x.dtype), out_dtype=torch.float32)
+    else:
+        out = x2.float() @ w.float()
+    return out.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def lm_head(params, x, cfg: ArchConfig, ctx: ModelContext):
+    x = norm_apply(params[SEG_HEAD]["norm"], x, cfg.norm)
+    w = params[SEG_EMBED]["tok"].T if cfg.tie_embeddings \
+        else params[SEG_HEAD]["out"]
+    return _matmul_f32(x, w)
+
+
+def forward(params, batch, cfg: ArchConfig, ctxs):
+    """Prefill forward. batch: {"tokens": (B,S) int}.  (The reference's
+    ``"embeds"`` input feeds the vlm/audio stub frontends, which come with
+    ROADMAP Queue 1 item 12.)
+
+    Returns (logits (B,S,V) f32, aux_loss scalar tensor).
+    """
+    x = embed_tokens(params, batch["tokens"], cfg, _ctx_for(ctxs, SEG_EMBED))
+    S = x.shape[1]
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    aux = 0.0
+    for gi, group in enumerate(cfg.stack_plan()):
+        seg = f"g{gi}"
+        x, a = _run_group(x, params[seg], group, cfg, _ctx_for(ctxs, seg),
+                          positions)
+        aux = aux + a
+    logits = lm_head(params, x, cfg, _ctx_for(ctxs, SEG_HEAD))
+    return logits, torch.as_tensor(aux, dtype=torch.float32,
+                                   device=x.device)
+
+
+# --- decode ------------------------------------------------------------------
+
+def cache_specs(cfg: ArchConfig, batch: int, smax: int):
+    """Decode cache shapes for the whole stack (stacked per group)."""
+    caches = {}
+    for gi, group in enumerate(cfg.stack_plan()):
+        gcache = {}
+        for j, kind in enumerate(group.pattern):
+            cs = block_cache_spec(kind, cfg, batch, smax)
+            if group.repeats > 1:
+                cs = tree_map(lambda s: TensorSpec(
+                    (group.repeats,) + s.shape, s.dtype), cs)
+            gcache[f"b{j}"] = cs
+        caches[f"g{gi}"] = gcache
+    return caches
+
+
+def init_cache(cfg: ArchConfig, batch: int, smax: int, device="cuda"):
+    dev = resolve_device(device)
+    return tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype, device=dev),
+                    cache_specs(cfg, batch, smax))
+
+
+def decode_step(params, caches, tokens, pos, cfg: ArchConfig, ctxs):
+    """One decoding step. tokens: (B,) int; pos: an ``int`` (every row at
+    one position) or a (B,) tensor of per-row positions.
+
+    Returns (logits (B,V) f32, caches); the caches are updated in place.
+    """
+    x = embed_tokens(params, tokens, cfg, _ctx_for(ctxs, SEG_EMBED))
+    for gi, group in enumerate(cfg.stack_plan()):
+        seg = f"g{gi}"
+        ctx = _ctx_for(ctxs, seg).with_(decode=True)
+        for lp, lc in zip(_layers(params[seg], group),
+                          _layers(caches[seg], group)):
+            for j, kind in enumerate(group.pattern):
+                x, _ = block_decode(kind, lp[f"b{j}"], x, lc[f"b{j}"], pos,
+                                    cfg, ctx)
+    logits = lm_head(params, x, cfg, _ctx_for(ctxs, SEG_HEAD))
+    return logits, caches
