@@ -1,23 +1,25 @@
 """Architecture registry: ``--arch <id>`` lookup.
 
 Lists only the archs the port can run today: dense ``attn`` stacks with
-full RoPE and no sliding window.  Every other arch of the reference
-registry raises ``KeyError`` naming the ROADMAP item that brings it.
+full RoPE (granite-8b, stablelm-3b) and the recurrent archs
+(recurrentgemma-2b: RG-LRU + local attention; xlstm-125m: mLSTM +
+sLSTM).  Every other arch of the reference registry raises ``KeyError``
+naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig, SHAPES
 from repro_torch.configs.granite_8b import CONFIG as _granite
+from repro_torch.configs.recurrentgemma_2b import CONFIG as _rg
 from repro_torch.configs.stablelm_3b import CONFIG as _stablelm
+from repro_torch.configs.xlstm_125m import CONFIG as _xlstm
 
-ARCHS = {c.name: c for c in (_granite, _stablelm)}
+ARCHS = {c.name: c for c in (_granite, _stablelm, _rg, _xlstm)}
 
 #: reference archs the port does not run yet -> the ROADMAP item bringing it
 PENDING = {
-    "xlstm-125m": "ROADMAP Queue 1 item 9 (recurrent and MoE archs)",
-    "recurrentgemma-2b": "ROADMAP Queue 1 item 9 (recurrent and MoE archs)",
-    "qwen3-moe-30b-a3b": "ROADMAP Queue 1 item 9 (recurrent and MoE archs)",
-    "kimi-k2-1t-a32b": "ROADMAP Queue 1 item 9 (recurrent and MoE archs)",
+    "qwen3-moe-30b-a3b": "ROADMAP Queue 1 item 9 (MoE archs)",
+    "kimi-k2-1t-a32b": "ROADMAP Queue 1 item 9 (MoE archs)",
     "chatglm3-6b": "ROADMAP Queue 1 item 12 (remaining dense archs)",
     "starcoder2-3b": "ROADMAP Queue 1 item 12 (remaining dense archs)",
     "phi-3-vision-4.2b": "ROADMAP Queue 1 item 12 (remaining dense archs)",

@@ -5,6 +5,8 @@ sources (on first use, on a machine with ``nvcc``) and keeps the launch
 counts.
 """
 from repro_torch.kernels.build import LAUNCHES, reset_launches  # noqa: F401
-from repro_torch.kernels.ops import flash_attention, flash_decode  # noqa: F401
+from repro_torch.kernels.ops import (  # noqa: F401
+    flash_attention, flash_decode, mlstm_chunkwise, rglru, rmsnorm)
 
-__all__ = ["flash_attention", "flash_decode", "LAUNCHES", "reset_launches"]
+__all__ = ["flash_attention", "flash_decode", "rglru", "mlstm_chunkwise",
+           "rmsnorm", "LAUNCHES", "reset_launches"]

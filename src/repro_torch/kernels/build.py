@@ -27,7 +27,10 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "torch_ext"
 SOURCES = {"flash_attention": "flash_attention.cu",
-           "flash_decode": "flash_decode.cu"}
+           "flash_decode": "flash_decode.cu",
+           "rglru": "rglru.cu",
+           "mlstm": "mlstm.cu",
+           "rmsnorm": "rmsnorm.cu"}
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-lineinfo", "-shared", "-Xcompiler", "-fPIC")
@@ -35,7 +38,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: head_dim values the kernels are compiled for (REPRO_DISPATCH_D)
-HEAD_DIMS = (16, 32, 64, 80, 96, 128)
+HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
 
@@ -151,27 +154,29 @@ def check(name: str, code: int):
                            f"({err(code).decode()})")
 
 
-def validate(name: str, tensors):
-    """Common checks before a launch: CUDA, one device, a supported dtype
-    and head_dim, and a contiguous last (head_dim) axis."""
+def validate(name: str, tensors, *, dtypes=tuple(DTYPE_CODES),
+             head_dims=HEAD_DIMS):
+    """Common checks before a launch: CUDA, one device, a dtype of
+    ``dtypes``, a contiguous last axis and, unless ``head_dims`` is None, a
+    last axis (head_dim) the kernel is compiled for."""
     t0 = tensors[0]
     if t0.device.type != "cuda":
         raise ValueError(f"{name}: tensors must be on a CUDA device, got "
                          f"{t0.device}")
     dtype = t0.dtype
-    if dtype not in DTYPE_CODES:
+    if dtype not in dtypes:
         raise TypeError(f"{name}: dtype {dtype} not supported "
-                        f"({sorted(map(str, DTYPE_CODES))})")
+                        f"({sorted(map(str, dtypes))})")
     for t in tensors:
         if t.device != t0.device or t.dtype != dtype:
             raise ValueError(f"{name}: mixed devices/dtypes "
                              f"{[(x.device, x.dtype) for x in tensors]}")
         if t.stride(-1) != 1:
-            raise ValueError(f"{name}: head_dim axis must be contiguous, "
+            raise ValueError(f"{name}: last axis must be contiguous, "
                              f"strides {t.stride()}")
-    if t0.shape[-1] not in HEAD_DIMS:
+    if head_dims is not None and t0.shape[-1] not in head_dims:
         raise ValueError(f"{name}: head_dim {t0.shape[-1]} not compiled "
-                         f"(have {HEAD_DIMS})")
+                         f"(have {head_dims})")
 
 
 def stream_ptr(device) -> ctypes.c_void_p:

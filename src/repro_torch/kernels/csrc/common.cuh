@@ -9,7 +9,7 @@ namespace repro {
 
 constexpr float NEG_INF = -1e30f;   // the reference's mask value
 
-// dtype codes passed from Python (kernels/_lib.py keeps the same table)
+// dtype codes passed from Python (kernels/build.py keeps the same table)
 enum DType : int { F32 = 0, BF16 = 1 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -56,5 +56,6 @@ __device__ __forceinline__ void load8(const float* p, float* out) {
     case 80: { constexpr int kD = 80; __VA_ARGS__ } break;   \
     case 96: { constexpr int kD = 96; __VA_ARGS__ } break;   \
     case 128: { constexpr int kD = 128; __VA_ARGS__ } break; \
+    case 256: { constexpr int kD = 256; __VA_ARGS__ } break; \
     default: return (int)cudaErrorInvalidValue;           \
   }

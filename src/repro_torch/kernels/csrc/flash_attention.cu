@@ -6,12 +6,15 @@
 // online-softmax state (m, l, acc) is f32, l is clamped at 1e-30, and the
 // output is written in q's dtype.  Query head h reads kv head h / G.
 //
-// Design.  One CTA per (q-tile of 64 rows, head, batch); the TPU's
+// Design.  One CTA per (q-tile of BQ rows, head, batch); the TPU's
 // sequential k-block grid axis becomes a loop inside the CTA.  K and V
 // tiles of 32 keys are staged through shared memory as f32 (the reference
 // upcasts q/k/v before both dots), and both products are f32 FMA on the
-// CUDA cores: 128 threads, each owning 4 query rows x (4 key columns of S,
-// D/8 columns of the output accumulator).  K tiles wholly above the causal
+// CUDA cores: 128 threads, each owning BQ/16 query rows x (4 key columns
+// of S, D/8 columns of the output accumulator).  BQ is 64, and 32 for
+// D=256 (recurrentgemma's heads): there a 64-row tile would hold 128 f32
+// accumulators per thread and 137 KB of shared memory, one CTA per SM;
+// 32 rows halve both (100 KB, two CTAs per SM).  K tiles wholly above the causal
 // diagonal or wholly outside the window are skipped, which is exact: such
 // a tile leaves (m, l, acc) unchanged in the reference too.  Any S is
 // accepted; the ragged last tile is masked.
@@ -28,13 +31,17 @@ using repro::NEG_INF;
 using repro::from_f;
 using repro::to_f;
 
-constexpr int BQ = 64;    // query rows per CTA
 constexpr int BK = 32;    // keys per staged tile
 constexpr int NT = 128;   // threads: 16 row groups x 8 column lanes
+
+// query rows per CTA
+template <int D>
+__host__ __device__ constexpr int block_q() { return D > 128 ? 32 : 64; }
 
 template <int D>
 constexpr size_t smem_bytes() {
   // Qs (BQ x D+1) + Ks (BK x D+1) + Vs (BK x D) + Ps (BQ x BK+1), f32
+  constexpr int BQ = block_q<D>();
   return sizeof(float) *
          (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1));
 }
@@ -46,6 +53,8 @@ __global__ void __launch_bounds__(NT) fa_fwd_kernel(
     int64_t q_sb, int64_t q_sh, int64_t q_ss, int64_t k_sb, int64_t k_sh,
     int64_t k_ss, int64_t v_sb, int64_t v_sh, int64_t v_ss, int64_t o_sb,
     int64_t o_sh, int64_t o_ss, int causal, int window, float scale) {
+  constexpr int BQ = block_q<D>();
+  constexpr int RQ = BQ / 16;   // query rows per thread
   constexpr int DP = D + 1;     // padded rows: column reads hit 32 banks
   constexpr int PP = BK + 1;
   constexpr int NJ = BK / 8;    // S columns per thread
@@ -61,7 +70,7 @@ __global__ void __launch_bounds__(NT) fa_fwd_kernel(
   const int b = blockIdx.z;
   const int kvh = h / G;
   const int tid = threadIdx.x;
-  const int ty = tid >> 3;      // rows ty*4 .. ty*4+3
+  const int ty = tid >> 3;      // rows ty*RQ .. ty*RQ+RQ-1
   const int tx = tid & 7;       // columns tx + 8*j
 
   const T* qb = q + b * q_sb + h * q_sh;
@@ -75,9 +84,9 @@ __global__ void __launch_bounds__(NT) fa_fwd_kernel(
     Qs[r * DP + c] = qi < Sq ? to_f(qb[qi * q_ss + c]) * scale : 0.f;
   }
 
-  float m_i[4], l_i[4], acc[4][ND];
+  float m_i[RQ], l_i[RQ], acc[RQ][ND];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RQ; ++i) {
     m_i[i] = NEG_INF;
     l_i[i] = 0.f;
 #pragma unroll
@@ -100,27 +109,27 @@ __global__ void __launch_bounds__(NT) fa_fwd_kernel(
     }
     __syncthreads();
 
-    float s[4][NJ];
+    float s[RQ][NJ];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RQ; ++i)
 #pragma unroll
       for (int j = 0; j < NJ; ++j) s[i][j] = 0.f;
 #pragma unroll 8
     for (int d = 0; d < D; ++d) {
-      float qv[4], kv[NJ];
+      float qv[RQ], kv[NJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty * 4 + i) * DP + d];
+      for (int i = 0; i < RQ; ++i) qv[i] = Qs[(ty * RQ + i) * DP + d];
 #pragma unroll
       for (int j = 0; j < NJ; ++j) kv[j] = Ks[(tx + 8 * j) * DP + d];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RQ; ++i)
 #pragma unroll
         for (int j = 0; j < NJ; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
     }
 
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
+    for (int i = 0; i < RQ; ++i) {
+      const int row = q0 + ty * RQ + i;
       bool ok[NJ];
       float mx = NEG_INF;
 #pragma unroll
@@ -141,7 +150,7 @@ __global__ void __launch_bounds__(NT) fa_fwd_kernel(
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
-        Ps[(ty * 4 + i) * PP + tx + 8 * j] = p;
+        Ps[(ty * RQ + i) * PP + tx + 8 * j] = p;
         sum += p;
       }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
@@ -156,21 +165,21 @@ __global__ void __launch_bounds__(NT) fa_fwd_kernel(
 
 #pragma unroll 4
     for (int c = 0; c < BK; ++c) {
-      float pv[4];
+      float pv[RQ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty * 4 + i) * PP + c];
+      for (int i = 0; i < RQ; ++i) pv[i] = Ps[(ty * RQ + i) * PP + c];
 #pragma unroll
       for (int jj = 0; jj < ND; ++jj) {
         const float vv = Vs[c * D + tx + 8 * jj];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][jj] = fmaf(pv[i], vv, acc[i][jj]);
+        for (int i = 0; i < RQ; ++i) acc[i][jj] = fmaf(pv[i], vv, acc[i][jj]);
       }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
+  for (int i = 0; i < RQ; ++i) {
+    const int row = q0 + ty * RQ + i;
     if (row < Sq) {
       const float inv = 1.f / fmaxf(l_i[i], 1e-30f);
 #pragma unroll
@@ -184,6 +193,7 @@ template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int H, int KV, int Sq, int Sk, const int64_t* st, int causal,
            int window, float scale, cudaStream_t stream) {
+  constexpr int BQ = block_q<D>();
   const size_t smem = smem_bytes<D>();
   // once per instantiation: opt in to more than 48 KB of shared memory
   static const cudaError_t attr = cudaFuncSetAttribute(

@@ -7,6 +7,8 @@ built-in default plan.  Runs on the card unless ``--device cpu``.
 Usage:
   python -m repro_torch.launch.serve --arch granite-8b
   python -m repro_torch.launch.serve --arch granite-8b --smoke --device cpu
+  python -m repro_torch.launch.serve --arch recurrentgemma-2b
+  python -m repro_torch.launch.serve --arch xlstm-125m --smoke --device cpu
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ from repro_torch.serve.engine import Request, ServeEngine
 
 def default_plan(cfg: ArchConfig) -> Plan:
     """The a-priori serving plan, as the reference's ``default_plan`` for
-    dense archs at inference shapes: no remat, plain kernels,
+    non-MoE archs at inference shapes: no remat, plain kernels,
     tensor_par[shard_vocab]."""
     return uniform_plan(cfg, "tensor_par", frozenset({"shard_vocab"}),
                         SegmentClause(remat="none", kernel="plain"))

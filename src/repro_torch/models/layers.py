@@ -1,4 +1,5 @@
-"""Shared layer primitives: norms, activations, RoPE, dense application."""
+"""Shared layer primitives: norms, activations, RoPE, dense application,
+the causal temporal conv."""
 from __future__ import annotations
 
 from typing import Optional
@@ -86,3 +87,27 @@ def apply_rope(x, positions, style: str = "full", base: float = 10000.0):
     r2 = x2 * cos + x1 * sin
     rot = torch.stack([r1, r2], dim=-1).reshape(xr.shape)
     return torch.cat([rot.to(x.dtype), x[..., rd:]], dim=-1)
+
+
+# --- temporal conv (decode-friendly) ----------------------------------------
+
+def causal_conv1d(x, w, state=None):
+    """Depthwise causal conv along the seq axis, accumulated in f32 over the
+    W taps.
+
+    x: (B, S, D); w: (W, D).  ``state`` (B, W-1, D) is the decode-time
+    history (zeros when None).  Returns (y in x's dtype, the new history
+    (B, W-1, D): the last W-1 inputs).
+    """
+    W = w.shape[0]
+    if state is None:
+        pad = x.new_zeros((x.shape[0], W - 1) + tuple(x.shape[2:]))
+    else:
+        pad = state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)                   # (B, S+W-1, D)
+    S = x.shape[1]
+    y = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for i in range(W):
+        y = y + xp[:, i:i + S].float() * w[i].float()
+    new_state = xp[:, xp.shape[1] - (W - 1):] if W > 1 else pad
+    return y.to(x.dtype), new_state

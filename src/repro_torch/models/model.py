@@ -138,11 +138,19 @@ def init_cache(cfg: ArchConfig, batch: int, smax: int, device="cuda"):
                     cache_specs(cfg, batch, smax))
 
 
+def _write_state(dst: torch.Tensor, src: torch.Tensor):
+    if src is not dst:
+        dst.copy_(src)
+
+
 def decode_step(params, caches, tokens, pos, cfg: ArchConfig, ctxs):
     """One decoding step. tokens: (B,) int; pos: an ``int`` (every row at
     one position) or a (B,) tensor of per-row positions.
 
     Returns (logits (B,V) f32, caches); the caches are updated in place.
+    A stacked group's per-layer caches are views of its stacked leaves, so
+    recurrent state is written back into them with ``copy_`` (a new tensor
+    bound to the tree would be lost).
     """
     x = embed_tokens(params, tokens, cfg, _ctx_for(ctxs, SEG_EMBED))
     for gi, group in enumerate(cfg.stack_plan()):
@@ -151,7 +159,8 @@ def decode_step(params, caches, tokens, pos, cfg: ArchConfig, ctxs):
         for lp, lc in zip(_layers(params[seg], group),
                           _layers(caches[seg], group)):
             for j, kind in enumerate(group.pattern):
-                x, _ = block_decode(kind, lp[f"b{j}"], x, lc[f"b{j}"], pos,
-                                    cfg, ctx)
+                x, new = block_decode(kind, lp[f"b{j}"], x, lc[f"b{j}"], pos,
+                                      cfg, ctx)
+                tree_map(_write_state, lc[f"b{j}"], new)
     logits = lm_head(params, x, cfg, _ctx_for(ctxs, SEG_HEAD))
     return logits, caches

@@ -153,8 +153,9 @@ class ServeEngine:
 
     ``capacity`` is the slot count (the batch), ``cache_len`` the per-slot
     sequence budget: every request must satisfy
-    ``len(prompt) + max_new_tokens <= cache_len`` (windowed archs
-    ring-wrap and are exempt).  Decoding is greedy.
+    ``len(prompt) + max_new_tokens <= cache_len`` (windowed and recurrent
+    archs are exempt: their caches ring-wrap or hold fixed-size state).
+    Decoding is greedy.
     """
 
     def __init__(self, cfg: ArchConfig, plan: Plan, *, capacity: int = 4,
@@ -171,6 +172,10 @@ class ServeEngine:
                                  self.device)
         self.params = params
         self._axes = cache_batch_axes(cfg)
+        # only full-causal KV caches bound a request's length; windowed
+        # caches ring-wrap and recurrent state has no length
+        self._bounded_cache = not cfg.window_size and "attn" in \
+            cfg.block_kinds()
         self.stats = ServeStats(capacity=self.capacity)
 
     # ------------------------------------------------------------------
@@ -187,7 +192,7 @@ class ServeEngine:
         rids = [r.rid for r in reqs]
         if len(set(rids)) != len(rids):
             raise ValueError(f"duplicate request ids: {rids}")
-        if not self.cfg.window_size:
+        if self._bounded_cache:
             for r in reqs:
                 need = len(r.prompt) + r.max_new_tokens
                 if need > self.cache_len:
@@ -259,7 +264,8 @@ class ServeEngine:
     def _admit(self, caches, s: int, req: Request, stats: ServeStats):
         """Prefill ``req`` alone (B=1, fresh zero cache) and copy the
         filled rows into slot ``s``.  The fresh cache also clears whatever
-        the previous occupant left in the slot."""
+        the previous occupant left in the slot (KV ring buffers, recurrent
+        and conv state)."""
         t = time.perf_counter()
         prompt = torch.tensor([req.prompt], dtype=torch.int64,
                               device=self.device)

@@ -3,8 +3,11 @@ package's Pallas kernels in interpret mode and its pure-jnp oracles.
 
 Inputs are made once with numpy from a seed and handed to both packages;
 bf16 inputs are rounded from the same f32 values on both sides.
-Tolerances are those of tests/test_kernels.py: 2e-5 in f32, 2e-2 in bf16.
+Tolerances are those of tests/test_kernels.py: 2e-5 in f32, 2e-2 in bf16
+for attention; 1e-5 / 1e-4 for rglru; 5e-4 / 5e-3 for mlstm; 1e-5 in f32
+and 2e-2 in bf16 for rmsnorm.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,6 +16,9 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention_fwd
+from repro.kernels.mlstm import mlstm_chunkwise_fwd
+from repro.kernels.rglru import rglru_fwd
+from repro.kernels.rmsnorm import rmsnorm_fwd
 from repro_torch.kernels import LAUNCHES, ops, ref
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -123,9 +129,132 @@ def test_flash_decode_lse_combine():
     _close(l1, jl1, "float32")
 
 
+def test_flash_attention_head_dim_256_mqa_window():
+    """recurrentgemma's attention: D=256, 10 query heads over 1 kv head, a
+    window shorter than the sequence (the CUDA kernel's BQ=32 variant)."""
+    B, S, H, KV, D, window = 1, 24, 10, 1, 256, 4
+    rng = np.random.default_rng(256)
+    jq, tq = _pair(rng, (B, S, H, D), "float32")
+    jk, tk = _pair(rng, (B, S, KV, D), "float32")
+    jv, tv = _pair(rng, (B, S, KV, D), "float32")
+    got = ops.flash_attention(tq, tk, tv, window=window)
+    hm = lambda x: jnp.moveaxis(x, 2, 1)            # noqa: E731
+    pallas = flash_attention_fwd(hm(jq), hm(jk), hm(jv), causal=True,
+                                 window=window, block_q=8, block_k=8,
+                                 interpret=True)
+    _close(got, jnp.moveaxis(pallas, 1, 2), "float32")
+
+
+# --- rglru -------------------------------------------------------------------
+
+def _gates(rng, shape):
+    li = rng.standard_normal(shape).astype(np.float32)
+    lf = -np.logaddexp(0.0, -rng.standard_normal(shape)).astype(np.float32)
+    return li, lf
+
+
+@pytest.mark.parametrize("B,S,dr,chunk", [
+    (1, 64, 32, 16), (2, 128, 96, 64), (1, 100, 48, 32),  # odd S
+])
+def test_rglru_matches_pallas(B, S, dr, chunk):
+    rng = np.random.default_rng(S + dr)
+    la = -np.abs(rng.standard_normal((B, S, dr)).astype(np.float32)) * 0.2
+    b = rng.standard_normal((B, S, dr)).astype(np.float32)
+    n0 = LAUNCHES["rglru"]
+    got = ops.rglru(torch.from_numpy(la), torch.from_numpy(b))
+    assert LAUNCHES["rglru"] == n0 and got.dtype == torch.float32
+    pallas = rglru_fwd(jnp.asarray(la), jnp.asarray(b), chunk=chunk,
+                       interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), atol=1e-5,
+                               rtol=1e-4)
+    # the oracle's associative scan, jitted (eager, it takes seconds)
+    oracle = jax.jit(jref.rglru_ref)(jnp.asarray(la), jnp.asarray(b))
+    np.testing.assert_allclose(got.numpy(), np.asarray(oracle), atol=1e-5,
+                               rtol=1e-4)
+
+
+# --- mlstm -------------------------------------------------------------------
+
+def _mlstm_inputs(rng, B, H, S, dh):
+    q = rng.standard_normal((B, H, S, dh)).astype(np.float32) * dh ** -0.5
+    k = rng.standard_normal((B, H, S, dh)).astype(np.float32)
+    v = rng.standard_normal((B, H, S, dh)).astype(np.float32)
+    return (q, k, v) + _gates(rng, (B, H, S))
+
+
+@pytest.mark.parametrize("B,H,S,dh,chunk", [
+    (1, 2, 64, 16, 16), (2, 2, 128, 32, 32), (1, 1, 96, 16, 32),
+])
+def test_mlstm_matches_pallas(B, H, S, dh, chunk):
+    ins = _mlstm_inputs(np.random.default_rng(S + dh), B, H, S, dh)
+    n0 = LAUNCHES["mlstm"]
+    got = ops.mlstm_chunkwise(*map(torch.from_numpy, ins), chunk=chunk)
+    assert LAUNCHES["mlstm"] == n0 and got.shape == (B, H, S, dh)
+    pallas = mlstm_chunkwise_fwd(*map(jnp.asarray, ins), chunk=chunk,
+                                 interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), atol=5e-4,
+                               rtol=5e-3)
+    # the step-recurrent oracles of both packages
+    oracle = np.asarray(jref.mlstm_ref(*map(jnp.asarray, ins)))
+    np.testing.assert_allclose(got.numpy(), oracle, atol=5e-4, rtol=5e-3)
+    np.testing.assert_allclose(ref.mlstm_ref(*map(torch.from_numpy, ins)),
+                               oracle, atol=5e-4, rtol=5e-3)
+
+
+def test_mlstm_chunk_invariance():
+    """The chunk is a performance knob (the CUDA kernel uses its own 64):
+    the plain version's result must not change with it."""
+    ins = tuple(map(torch.from_numpy, _mlstm_inputs(
+        np.random.default_rng(7), 1, 2, 64, 16)))
+    o16 = ops.mlstm_chunkwise(*ins, chunk=16)
+    for c in (64, 100):          # 100 is clamped to a divisor of S (32)
+        np.testing.assert_allclose(ops.mlstm_chunkwise(*ins, chunk=c), o16,
+                                   atol=5e-4, rtol=5e-3)
+
+
+def test_mlstm_chunk_invariance_exact_in_float64():
+    """In float64 the chunkwise math does not depend on the chunk beyond
+    rounding (and the e^-30 mask terms): the f32 differences between
+    chunks are rounding of the in-chunk cumulative log-forget sums."""
+    ins = tuple(torch.from_numpy(a).double() for a in _mlstm_inputs(
+        np.random.default_rng(8), 1, 2, 512, 32))
+    o256 = ref.mlstm_chunkwise_ref(*ins, chunk=256)
+    assert o256.dtype == torch.float64
+    np.testing.assert_allclose(ref.mlstm_chunkwise_ref(*ins, chunk=64),
+                               o256, atol=1e-9, rtol=1e-9)
+    np.testing.assert_allclose(ref.mlstm_ref(*ins), o256, atol=1e-9,
+                               rtol=1e-9)
+
+
+# --- rmsnorm -----------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(32, 64), (128, 96)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_matches_pallas(shape, dtype):
+    rng = np.random.default_rng(shape[0])
+    jx, tx = _pair(rng, shape, dtype)
+    js, ts = _pair(rng, shape[-1:], dtype)
+    n0 = LAUNCHES["rmsnorm"]
+    got = ops.rmsnorm(tx, ts)
+    assert LAUNCHES["rmsnorm"] == n0 and got.dtype == TDT[dtype]
+    tol = 2e-2 if dtype == "bfloat16" else 1e-5
+    want = rmsnorm_fwd(jx, js, interpret=True)
+    np.testing.assert_allclose(_np(got), _np(want), atol=tol, rtol=tol)
+    # leading axes are flattened into rows, as the reference's op does
+    got3 = ops.rmsnorm(tx.reshape(2, -1, shape[-1]), ts)
+    np.testing.assert_allclose(_np(got3).reshape(shape), _np(want),
+                               atol=tol, rtol=tol)
+
+
 def test_ops_reject_other_devices():
     q = torch.empty((1, 4, 2, 16), device="meta")
     with pytest.raises(ValueError, match="no kernel for device"):
         ops.flash_attention(q, q, q)
     with pytest.raises(ValueError, match="no kernel for device"):
         ops.flash_decode(q[:, 0], q, q, 1)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops.rglru(q[0], q[0])
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops.mlstm_chunkwise(q, q, q, q[..., 0], q[..., 0])
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops.rmsnorm(q, q[0, 0, 0])

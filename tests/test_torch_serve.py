@@ -2,11 +2,13 @@
 its token streams against the JAX package's ServeEngine on the same f32
 smoke weights and seeded requests, plans written by the JAX package, and
 the CLI."""
+import dataclasses
 import json
 
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_arch as jget_arch
 from repro.core.plan import uniform_plan as juniform_plan
@@ -45,9 +47,11 @@ def _engine(name="granite-8b", kernel="plain", **kw):
     return ServeEngine(cfg, _plan(cfg, kernel), device="cpu", **kw)
 
 
-@pytest.mark.parametrize("kernel", ["plain", "cuda"])
-def test_engine_batched_equals_sequential_byte_identical(kernel):
-    eng = _engine(kernel=kernel, capacity=4, cache_len=32)
+@pytest.mark.parametrize("name,kernel", [
+    ("granite-8b", "plain"), ("granite-8b", "cuda"),
+    ("recurrentgemma-2b", "cuda"), ("xlstm-125m", "cuda")])
+def test_engine_batched_equals_sequential_byte_identical(name, kernel):
+    eng = _engine(name, kernel=kernel, capacity=4, cache_len=32)
     reqs = _reqs(Request, eng.cfg.vocab_size, 7)
     batched = eng.run(reqs)
     assert eng.stats.peak_active >= 3
@@ -60,15 +64,17 @@ def test_engine_batched_equals_sequential_byte_identical(kernel):
             sequential[r.rid].finish_reason
 
 
-def test_engine_streams_match_reference_engine():
+@pytest.mark.parametrize("name", ["granite-8b", "recurrentgemma-2b",
+                                  "xlstm-125m"])
+def test_engine_streams_match_reference_engine(name):
     """Same f32 smoke weights, same seeded requests: the port's engine
     emits the reference engine's token streams."""
-    jcfg = jget_arch("granite-8b").smoke()
+    jcfg = jget_arch(name).smoke()
     jparams = jinit_params(jmodel_specs(jcfg), jax.random.key(0))
     jeng = JServeEngine(jcfg, juniform_plan(jcfg, "tensor_par", set(),
                                             JClause(kernel="xla")),
                         capacity=3, cache_len=16, params=jparams)
-    eng = _engine(capacity=3, cache_len=16,
+    eng = _engine(name, capacity=3, cache_len=16,
                   params=params_from_numpy(jax.tree.map(np.asarray, jparams),
                                            "cpu"))
     want = jeng.run(_reqs(JRequest, jcfg.vocab_size, 4, tokens=4))
@@ -105,14 +111,53 @@ def test_engine_overflow_and_duplicate_rid_rejected():
 
 
 def test_cache_batch_axes_match_cache_ranks():
-    for name in ("granite-8b", "stablelm-3b"):
+    for name in ("granite-8b", "stablelm-3b", "recurrentgemma-2b",
+                 "xlstm-125m"):
         cfg = get_arch(name).smoke()
-        caches = init_cache(cfg, 3, 8, "cpu")
-        axes = cache_batch_axes(cfg)
-        for g in caches:
-            for leaf, ax in zip(caches[g]["b0"].values(),
-                                axes[g]["b0"].values()):
-                assert leaf.shape[ax] == 3
+        for c in (cfg, dataclasses.replace(cfg, num_layers=3 * cfg.num_layers)):
+            caches = init_cache(c, 3, 8, "cpu")
+            axes = cache_batch_axes(c)
+            for g in caches:
+                for b in caches[g]:
+                    for leaf, ax in zip(caches[g][b].values(),
+                                        axes[g][b].values()):
+                        assert leaf.shape[ax] == 3, (c.name, g, b)
+
+
+@pytest.mark.parametrize("name", ["recurrentgemma-2b", "xlstm-125m"])
+def test_engine_recycled_slot_starts_from_reset_state(name):
+    """One slot, two requests: the second is admitted into the slot the
+    first left, after the first ran its recurrent (and conv) state forward.
+    Its stream equals the stream it gets in a fresh run, and its admitted
+    state equals a fresh prefill's."""
+    cfg = get_arch(name).smoke()
+    cfg = dataclasses.replace(cfg, num_layers=2 * cfg.num_layers)  # stacked
+    eng = ServeEngine(cfg, _plan(cfg, "cuda"), capacity=1, cache_len=16,
+                      device="cpu")
+    a = Request(rid="a", prompt=(5, 6, 7, 8), max_new_tokens=6)
+    b = Request(rid="b", prompt=(9, 2), max_new_tokens=5)
+    both = eng.run([a, b])
+    assert both["b"].slot == both["a"].slot == 0
+    alone = eng.run([b])
+    assert both["b"].tokens == alone["b"].tokens
+    # admission over a dirty slot leaves exactly the fresh prefill's state
+    caches = init_cache(cfg, 1, 16, "cpu")
+    eng._admit(caches, 0, a, eng.stats)
+    eng._admit(caches, 0, b, eng.stats)
+    fresh = init_cache(cfg, 1, 16, "cpu")
+    eng._admit(fresh, 0, b, eng.stats)
+    for g in caches:
+        for blk in caches[g]:
+            for key, leaf in caches[g][blk].items():
+                assert torch.equal(leaf, fresh[g][blk][key]), (g, blk, key)
+
+
+def test_engine_recurrent_archs_ignore_cache_len():
+    """Recurrent state and windowed caches bound no request length."""
+    for name in ("recurrentgemma-2b", "xlstm-125m"):
+        eng = _engine(name, capacity=2, cache_len=4)
+        done = eng.run([Request(rid="a", prompt=(1, 2, 3), max_new_tokens=6)])
+        assert len(done["a"].tokens) == 6
 
 
 @pytest.mark.parametrize("jkernel,kernel", [("xla", "plain"),
@@ -133,16 +178,20 @@ def test_reference_plan_json_loads_unchanged(jkernel, kernel):
 def test_arch_registry_names_pending_roadmap_items():
     assert get_arch("granite-8b").num_layers == 36
     assert get_arch("stablelm-3b-smoke").norm == "layernorm"
+    assert get_arch("xlstm-125m").block_kinds().count("mlstm") == 9
+    assert get_arch("recurrentgemma-2b-smoke").head_dim == 16
     with pytest.raises(KeyError, match="ROADMAP Queue 1 item 9"):
-        get_arch("xlstm-125m")
+        get_arch("qwen3-moe-30b-a3b")
     with pytest.raises(KeyError, match="unknown arch"):
         get_arch("nope")
     with pytest.raises(ValueError, match="kernel"):
         SegmentClause(kernel="pallas")
 
 
-def test_cli_serves_on_cpu(capsys):
-    done = serve(["--arch", "granite-8b", "--smoke", "--device", "cpu",
+@pytest.mark.parametrize("arch", ["granite-8b", "recurrentgemma-2b",
+                                  "xlstm-125m"])
+def test_cli_serves_on_cpu(capsys, arch):
+    done = serve(["--arch", arch, "--smoke", "--device", "cpu",
                   "--requests", "2", "--tokens", "3", "--cache-len", "16"])
     assert sorted(done) == ["r0", "r1"]
     assert all(len(c.tokens) == 3 for c in done.values())
