@@ -4,16 +4,18 @@
 Requires CUDA and prints the card's name and power limit, then runs the
 phases (each failure exits non-zero and prints no result line):
   build   — compile every CUDA kernel from ``src/repro_torch/kernels/csrc``
-            (one nvcc per source, in parallel) and print the build time and
-            ptxas statistics.
+            (one nvcc per source, in parallel) and print the build time of
+            each source and ptxas statistics of each kernel.
   kernels — hold each kernel against its plain PyTorch version on the card
             at its path's shapes, and time kernel, plain version and, where
             one PyTorch call computes the same function, that call (a
             yardstick the port never calls) with CUDA events:
-            flash-attention at granite-8b's heads (H 32, KV 8, D 128) and at
+            flash-attention at granite-8b's heads (H 32, KV 8, D 128), at
             recurrentgemma-2b's (H 10, KV 1, D 256, window 2048, also at
-            S=4096 > window), f32 and bf16, against
-            ``scaled_dot_product_attention``; flash-decode at granite-8b's;
+            S=4096 > window) and at stablelm-3b's (H 32, KV 32, D 80), f32
+            (the FMA route) and bf16 (the wgmma route), with TFLOP/s,
+            against ``scaled_dot_product_attention``; flash-decode at
+            granite-8b's;
             rglru at (1, 2048, 2560) and an odd S; mlstm at (1, 4, 2048,
             384) against the chunkwise plain version at three chunks and the
             step-recurrent oracle; rmsnorm at (2048, 2560), f32 and bf16,
@@ -64,6 +66,7 @@ import argparse
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -182,9 +185,19 @@ def phase_build(torch, state):
     log(f"build: {sorted(res)} in {time.perf_counter() - t0:.1f}s "
         f"(parallel nvcc)")
     for r in res.values():
+        log(f"  {r.name}: nvcc {r.seconds:.1f}s")
+        fn = ""
         for line in r.log.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {r.name}: {line.strip()}")
+            m = re.search(r"Function properties for \S*?([a-z_]+_kernel)"
+                          r"(\S*)", line)
+            if m:     # the kernel and its template arguments, abridged
+                args = m.group(2)
+                dt = ("bf16 " if "bfloat16" in args else
+                      "f32 " if args.startswith("If") else "")
+                dims = ",".join(re.findall(r"Li(\d+)E", args))
+                fn = m.group(1) + (f"<{dt}{dims}>" if dt or dims else "")
+            elif "registers" in line or "spill" in line:
+                log(f"  {r.name} {fn}: {line.strip()}")
 
 
 def _fa_checks(torch, rand, rows, failures, H, KV, D, cases):
@@ -193,7 +206,7 @@ def _fa_checks(torch, rand, rows, failures, H, KV, D, cases):
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref as R
-    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.flash_attention import flash_attention_fwd, route
 
     dev = torch.device("cuda")
     B = 1
@@ -224,16 +237,20 @@ def _fa_checks(torch, rand, rows, failures, H, KV, D, cases):
             pairs = int(live.sum())        # (q, k) pairs the mask keeps
             item = q.element_size()
             nbytes = (2 * B * S * H * D + 2 * B * S * KV * D) * item
-            bms, by = bound_ms(nbytes, 4 * B * H * D * pairs, name)
+            flops = 4 * B * H * D * pairs
+            bms, by = bound_ms(nbytes, flops, name)
+            path = route(dt, D)
             rows.append(dict(kernel="flash_attention", dtype=name, S=S, D=D,
                              H=H, KV=KV, window=window, max_abs_err=err,
                              ok=ok, ms=ms, plain_ms=plain, library_ms=lib,
-                             bound_ms=bms, bound_by=by))
+                             bound_ms=bms, bound_by=by, cuda_route=path,
+                             tflops=flops / ms * 1e-9))
             log(f"flash_attention {name} H={H} KV={KV} D={D} S={S} "
-                f"window={window}: max_abs_err={err:.3g} "
+                f"window={window} [{path}]: max_abs_err={err:.3g} "
                 f"({'ok' if ok else 'FAIL'}) kernel={ms:.4f}ms "
-                f"plain={plain:.4f}ms sdpa={lib:.4f}ms bound={bms:.4f}ms "
-                f"({by})")
+                f"({flops / ms * 1e-9:.1f} TFLOP/s) plain={plain:.4f}ms "
+                f"sdpa={lib:.4f}ms ({flops / lib * 1e-9:.1f} TFLOP/s) "
+                f"bound={bms:.4f}ms ({by})")
             if not ok:
                 failures.append(f"flash_attention {name} D={D} S={S} "
                                 f"w={window}")
@@ -258,11 +275,12 @@ def phase_kernels(torch, state):
                            dtype=torch.float32).to(dt)
 
     # granite-8b's heads; recurrentgemma-2b's (MQA, D=256, its window 2048
-    # at S=2048 and at S=4096 > window)
+    # at S=2048 and at S=4096 > window); stablelm-3b's (MHA, D=80)
     _fa_checks(torch, rand, rows, failures, H, KV, D,
                ((1000, 0), (2048, 0), (2048, 512)))
     _fa_checks(torch, rand, rows, failures, 10, 1, 256,
                ((2048, 2048), (4096, 2048)))
+    _fa_checks(torch, rand, rows, failures, 32, 32, 80, ((2048, 0),))
 
     # flash decode: caches (B,Smax,KV,D), passed head-major as views
     for Bd, Smax, pos in ((1, 4096, 0), (1, 4096, 17), (1, 4096, 4095),
@@ -960,12 +978,16 @@ def kernels_line(state):
     rows = state["kernel_checks"]
     paths = state.get("launches", {})
 
-    def pick(kernel, **kw):
+    def pick_row(kernel, **kw):
         for r in rows:
             if r["kernel"] == kernel and all(r.get(k) == v
                                              for k, v in kw.items()):
-                return {k: r[k] for k in NUMBERS}
+                return r
         raise SmokeFailure(f"no {kernel} row {kw}")
+
+    def pick(kernel, **kw):
+        r = pick_row(kernel, **kw)
+        return {k: r[k] for k in NUMBERS}
 
     main_rows = {
         "flash_attention": pick("flash_attention", dtype="bfloat16", S=2048,
@@ -983,9 +1005,15 @@ def kernels_line(state):
                  "replaces": rep, "launches": sum(by_path.values()),
                  "launches_by_path": by_path, **main_rows[name]}
         if name == "flash_attention":
+            # the CUDA kernel's own route at these shapes (bf16: wgmma)
+            entry["cuda_route"] = pick_row(
+                "flash_attention", dtype="bfloat16", S=2048, window=0,
+                D=128)["cuda_route"]
             entry["at_head_dim_256"] = pick(
                 "flash_attention", dtype="bfloat16", S=2048, window=2048,
                 D=256)
+            entry["at_head_dim_80"] = pick(
+                "flash_attention", dtype="bfloat16", S=2048, window=0, D=80)
         out.append(entry)
     return {"kernels": out}
 

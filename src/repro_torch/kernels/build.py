@@ -17,6 +17,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, Iterable, Optional
@@ -56,6 +58,7 @@ class BuildResult:
     name: str
     path: Path
     log: str              # nvcc's output (ptxas statistics with verbose)
+    seconds: float = 0.0  # this source's nvcc wall time (0 if cached)
 
 
 def nvcc_path() -> str:
@@ -88,6 +91,7 @@ def build(names: Optional[Iterable[str]] = None, *,
     nvcc = None
     procs = {}
     results: Dict[str, BuildResult] = {}
+    t0 = time.perf_counter()
     for name in names:
         out = _lib_path(name, NVCC_FLAGS)
         if out.exists() and not verbose:
@@ -97,20 +101,29 @@ def build(names: Optional[Iterable[str]] = None, *,
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
         cmd = [nvcc, *flags, "-o", str(tmp), str(CSRC / SOURCES[name])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.PIPE, text=True),
+                                        stderr=subprocess.STDOUT, text=True),
                        tmp, out)
+    # each process's output is drained on its own thread, so each finish
+    # time is its own and no pipe fills up
+    with ThreadPoolExecutor(max(1, len(procs))) as pool:
+        done = {name: pool.submit(_finish, proc, t0)
+                for name, (proc, _, _) in procs.items()}
     failures = []
     for name, (proc, tmp, out) in procs.items():
-        stdout, stderr = proc.communicate()
-        log = (stdout + stderr).strip()
+        log, seconds = done[name].result()
         if proc.returncode != 0:
             failures.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             continue
         os.replace(tmp, out)
-        results[name] = BuildResult(name, out, log)
+        results[name] = BuildResult(name, out, log, seconds)
     if failures:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
     return results
+
+
+def _finish(proc, t0):
+    log = proc.communicate()[0].strip()
+    return log, time.perf_counter() - t0
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -13,6 +13,7 @@ import torch
 from repro_torch.configs import get_arch
 from repro_torch.core.plan import uniform_plan
 from repro_torch.kernels import LAUNCHES, ops, ref, reset_launches
+from repro_torch.kernels.flash_attention import route as fa_route
 from repro_torch.models.context import SegmentClause
 from repro_torch.models.model import model_specs
 from repro_torch.models.params import init_params
@@ -44,10 +45,17 @@ def _close(got, want, dtype):
 
 @pytest.mark.parametrize("B,S,H,KV,D", [
     (1, 128, 4, 4, 32), (2, 100, 4, 2, 64), (1, 77, 8, 1, 16),
-    (1, 300, 32, 8, 128), (1, 65, 4, 4, 80), (1, 200, 10, 1, 256)])
+    (1, 300, 32, 8, 128), (1, 65, 4, 4, 80), (1, 200, 10, 1, 256),
+    # the wgmma route's head dims at G = 1, 4 and 10: ragged S, and S
+    # shorter than one tile
+    (1, 1000, 8, 2, 128), (1, 2047, 4, 4, 80), (1, 2047, 10, 1, 256),
+    (1, 1, 8, 2, 128), (1, 1, 4, 4, 80), (1, 1, 10, 1, 256),
+    (1, 65, 8, 2, 128), (2, 65, 10, 1, 256), (1, 1000, 8, 2, 80)])
 @pytest.mark.parametrize("window", [0, 48])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_cuda_vs_plain(dev, B, S, H, KV, D, window, dtype):
+    if dtype == torch.bfloat16 and D in (80, 128, 256):
+        assert fa_route(dtype, D) == "wgmma"
     rng = np.random.default_rng(0)
     q = _t(rng, (B, S, H, D), dtype, dev)
     k = _t(rng, (B, S, KV, D), dtype, dev)
@@ -59,6 +67,65 @@ def test_flash_attention_cuda_vs_plain(dev, B, S, H, KV, D, window, dtype):
     want = ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                                    v.transpose(1, 2), window=window)
     _close(got, want.transpose(1, 2), dtype)
+
+
+@pytest.mark.parametrize("Sq,Sk,window", [(100, 300, 0), (100, 300, 48),
+                                           (300, 100, 0)])
+@pytest.mark.parametrize("D", [80, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_cuda_sq_ne_sk(dev, Sq, Sk, window, D, dtype):
+    """Queries and keys of different lengths, the mask on absolute
+    positions as in the reference (every query row keeps a key)."""
+    rng = np.random.default_rng(6)
+    q = _t(rng, (1, Sq, 8, D), dtype, dev)
+    k = _t(rng, (1, Sk, 2, D), dtype, dev)
+    v = _t(rng, (1, Sk, 2, D), dtype, dev)
+    got = ops.flash_attention(q, k, v, window=window)
+    want = ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), window=window)
+    _close(got, want.transpose(1, 2), dtype)
+
+
+@pytest.mark.parametrize("D", [80, 128, 256])
+@pytest.mark.parametrize("window", [0, 48])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_cuda_non_causal(dev, D, window, dtype):
+    """causal=False: every key of the window, before and after the row."""
+    rng = np.random.default_rng(8)
+    q = _t(rng, (1, 200, 8, D), dtype, dev)
+    k = _t(rng, (1, 200, 2, D), dtype, dev)
+    v = _t(rng, (1, 200, 2, D), dtype, dev)
+    got = ops.flash_attention(q, k, v, causal=False, window=window)
+    want = ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), causal=False,
+                                   window=window)
+    _close(got, want.transpose(1, 2), dtype)
+
+
+@pytest.mark.parametrize("D", [80, 128, 256])
+def test_flash_attention_cuda_fused_qkv_views(dev, D):
+    """q, k and v as slices of one (B,S,H+2KV,D) projection: model-layout
+    views that are not contiguous, read by TMA through their strides."""
+    rng = np.random.default_rng(7)
+    B, S, H, KV = 2, 300, 8, 2
+    qkv = _t(rng, (B, S, H + 2 * KV, D), torch.bfloat16, dev)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+    assert not q.is_contiguous()
+    got = ops.flash_attention(q, k, v, window=0)
+    want = ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2))
+    _close(got, want.transpose(1, 2), torch.bfloat16)
+
+
+def test_flash_attention_wgmma_rejects_unaligned_strides(dev):
+    """TMA takes strides of whole 16 bytes only: a head stride of 84 bf16
+    elements is refused before launch (the f32-FMA route takes it)."""
+    x = torch.zeros((1, 64, 4, 84), device=dev, dtype=torch.bfloat16)
+    q = x[..., :80]
+    with pytest.raises(ValueError, match="TMA"):
+        ops.flash_attention(q, q, q)
+    got = ops.flash_attention(q.float(), q.float(), q.float())
+    assert got.shape == q.shape
 
 
 @pytest.mark.parametrize("B,Smax,H,KV,D", [

@@ -77,6 +77,80 @@ def test_flash_attention_matches_pallas(B, H, KV, S, D, window, dtype):
            oracle, dtype)
 
 
+def test_flash_attention_route():
+    """The route the CUDA wrapper takes: bf16 at the head_dim of every
+    attention arch the port serves runs on the tensor cores (wgmma); f32,
+    and bf16 at the other compiled head dims, keep the f32-FMA kernel."""
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.kernels.build import HEAD_DIMS
+    from repro_torch.kernels.flash_attention import WGMMA_HEAD_DIMS, route
+    served = {c.head_dim_ for c in ARCHS.values()
+              if "attn" in c.block_kinds()}
+    assert served == {80, 128, 256}   # stablelm-3b, granite-8b, recurrentgemma
+    for D in served:
+        assert route(torch.bfloat16, D) == "wgmma"
+    for D in HEAD_DIMS:
+        assert route(torch.float32, D) == "fma"
+        assert route(torch.bfloat16, D) == (
+            "wgmma" if D in WGMMA_HEAD_DIMS else "fma")
+
+
+def _attention_bf16_p(q, k, v, *, window, block_k):
+    """The wgmma route's arithmetic, emulated: f32 scores, online softmax
+    over key tiles of ``block_k``, p rounded to bf16 before P V (products
+    of bf16 values summed in f32), l summed from the f32 p.
+
+    q: (B,H,S,D), k/v: (B,KV,S,D) -> (B,H,S,D) in q's dtype."""
+    B, H, S, D = q.shape
+    KV = k.shape[1]
+    qf = q.float().reshape(B, KV, H // KV, S, D)
+    kf, vf = k.float(), v.float()
+    m = torch.full((B, KV, H // KV, S), ref.NEG_INF)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qf)
+    iq = torch.arange(S)[:, None]
+    for k0 in range(0, S, block_k):
+        jk = torch.arange(k0, min(k0 + block_k, S))[None, :]
+        live = (iq >= jk) & ((iq - jk < window) if window else True)
+        s = torch.einsum("bkgqd,bksd->bkgqs", qf,
+                         kf[:, :, k0:k0 + block_k]) * D ** -0.5
+        s = torch.where(live, s, ref.NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(live, torch.exp(s - m_new[..., None]), 0.0)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bkgqs,bksd->bkgqd", p.to(torch.bfloat16).float(),
+            vf[:, :, k0:k0 + block_k])
+        m = m_new
+    o = acc / l.clamp_min(1e-30)[..., None]
+    return o.reshape(B, H, S, D).to(q.dtype)
+
+
+@pytest.mark.parametrize("window", [0, 64])
+@pytest.mark.parametrize("block_k", [64, 128])
+def test_flash_attention_bf16_p_contract(window, block_k):
+    """The bf16 contract of the wgmma route against the Pallas kernel
+    (interpret mode) on the GQA shape, at the bf16 tolerance.  Rounding p
+    to bf16 moves an output element by at most about 2^-9 max|v|; the
+    largest difference seen here is 0.0078 (one bf16 ulp of the output)."""
+    B, H, KV, S, D = 2, 4, 2, 128, 32
+    rng = np.random.default_rng(S + H + window)
+    jq, tq = _pair(rng, (B, S, H, D), "bfloat16")
+    jk, tk = _pair(rng, (B, S, KV, D), "bfloat16")
+    jv, tv = _pair(rng, (B, S, KV, D), "bfloat16")
+    got = _attention_bf16_p(tq.transpose(1, 2), tk.transpose(1, 2),
+                            tv.transpose(1, 2), window=window,
+                            block_k=block_k)
+    hm = lambda x: jnp.moveaxis(x, 2, 1)            # noqa: E731
+    pallas = flash_attention_fwd(hm(jq), hm(jk), hm(jv), causal=True,
+                                 window=window, block_q=64, block_k=64,
+                                 interpret=True)
+    err = float(np.abs(_np(got) - _np(pallas)).max())
+    assert err <= TOL["bfloat16"] / 2, err
+    _close(got, pallas, "bfloat16")
+
+
 # --- flash decode ------------------------------------------------------------
 
 @pytest.mark.parametrize("pos", [0, 17, 255])
