@@ -18,8 +18,13 @@ phases (each failure exits non-zero and prints no result line):
             granite-8b's;
             rglru at (1, 2048, 2560) and an odd S; mlstm at (1, 4, 2048,
             384) against the chunkwise plain version at three chunks and the
-            step-recurrent oracle; rmsnorm at (2048, 2560), f32 and bf16,
-            against ``F.rms_norm``.
+            step-recurrent oracle, and at S=4096 (times, the CUDA kernels of
+            one call and its peak memory); rmsnorm at (2048, 2560), f32 and
+            bf16, against ``F.rms_norm``.  Beside each CUDA-event time
+            (``ms``, one call between two events) the device time of the
+            kernel and of the library call (``device_ms``: torch.profiler,
+            the device work of one call, mean over 20), and for the small
+            kernels the host time of one call (``host_ms``).
   prefill — granite-8b at full width and depth, bf16, seeded random
             weights: ``make_prefill`` under a ``kernel="cuda"`` plan at
             B=1, S=2048 (finite logits; flash-attention launch count);
@@ -83,7 +88,9 @@ RECURRENT = ("recurrentgemma-2b", "xlstm-125m")
 # rate, and the f32 rate outside the tensor cores (the kernels' f32 inputs
 # keep the reference's exact f32 math).
 HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_OPS_S = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
+# the mlstm kernel's products are 3xTF32 splits: three TF32 passes each
+MLSTM_SPLIT_PASSES = 3
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py floors
 # (atol, rtol) of tests/test_kernels.py for the recurrent kernels
@@ -153,6 +160,84 @@ def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
         evs.append((s, e))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in evs)
+
+
+def _device_us(a) -> float:
+    return getattr(a, "self_device_time_total",
+                   getattr(a, "self_cuda_time_total", 0.0))
+
+
+def device_events(prof):
+    """Key averages of the device's own events (kernels, copies, sets),
+    whose self time is device time.  A CPU op also carries the time of the
+    kernels it launched, so a sum over every event counts those twice."""
+    from torch.autograd import DeviceType
+    return [a for a in prof.key_averages()
+            if a.device_type == DeviceType.CUDA
+            and not getattr(a, "is_user_annotation", False)]
+
+
+def device_ms(torch, fn, calls: int = 20, warmup: int = 3):
+    """Mean device time of one call of ``fn`` in ms (the summed time of
+    the device work it launches, from torch.profiler over ``calls``
+    calls), and that work per call as {kernel name: {"launches": n,
+    "device_ms": t}}.
+
+    The profiler now and then records no device activity at all; it is
+    asked three times, and then CUDA events around ``calls`` back-to-back
+    calls stand in (logged, and with no kernel names)."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        evs = device_events(prof)
+        total = sum(_device_us(a) for a in evs)
+        if total > 0:
+            return total / calls / 1e3, {
+                _kernel_name(a.key): {"launches": a.count / calls,
+                                      "device_ms": _device_us(a) / calls / 1e3}
+                for a in evs}
+        log(f"torch.profiler recorded no device time (attempt "
+            f"{attempt + 1} of 3)")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    log("device time from CUDA events around back-to-back calls instead")
+    return start.elapsed_time(end) / calls, {}
+
+
+def _kernel_name(key: str) -> str:
+    """A demangled kernel name without namespaces, return type and
+    argument list: ``void (anonymous namespace)::f<24>(float ...)`` ->
+    ``f<24>``."""
+    name = key.split("(float", 1)[0].split("(int", 1)[0]
+    name = name.replace("(anonymous namespace)::", "")
+    return name.removeprefix("void ").strip()
+
+
+def host_ms(torch, fn, calls: int = 200, warmup: int = 10) -> float:
+    """Host time of one call of ``fn`` in ms: the wall time of ``calls``
+    back-to-back calls, without a synchronize, over ``calls`` (what the
+    caller's thread spends before the work is queued)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e3
 
 
 def max_err(torch, got, want, dtype: str, tol=None):
@@ -229,11 +314,17 @@ def _fa_checks(torch, rand, rows, failures, H, KV, D, cases):
             live = i[:, None] >= i[None, :]
             if window and window < S:
                 live &= i[:, None] - i[None, :] < window
-                lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                    q, k, v, attn_mask=live, enable_gqa=True))
+                mask = dict(attn_mask=live)
             else:
-                lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True, enable_gqa=True))
+                mask = dict(is_causal=True)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(q, k, v, **mask,
+                                                      enable_gqa=True)
+            lib = cuda_ms(torch, sdpa)
+            lib_dev, _ = device_ms(torch, sdpa)
+            dev_ms, _ = device_ms(torch, lambda: flash_attention_fwd(
+                q, k, v, causal=True, window=window))
             pairs = int(live.sum())        # (q, k) pairs the mask keeps
             item = q.element_size()
             nbytes = (2 * B * S * H * D + 2 * B * S * KV * D) * item
@@ -242,14 +333,17 @@ def _fa_checks(torch, rand, rows, failures, H, KV, D, cases):
             path = route(dt, D)
             rows.append(dict(kernel="flash_attention", dtype=name, S=S, D=D,
                              H=H, KV=KV, window=window, max_abs_err=err,
-                             ok=ok, ms=ms, plain_ms=plain, library_ms=lib,
-                             bound_ms=bms, bound_by=by, cuda_route=path,
+                             ok=ok, ms=ms, device_ms=dev_ms,
+                             plain_ms=plain, library_ms=lib,
+                             library_device_ms=lib_dev, bound_ms=bms,
+                             bound_by=by, cuda_route=path,
                              tflops=flops / ms * 1e-9))
             log(f"flash_attention {name} H={H} KV={KV} D={D} S={S} "
                 f"window={window} [{path}]: max_abs_err={err:.3g} "
                 f"({'ok' if ok else 'FAIL'}) kernel={ms:.4f}ms "
-                f"({flops / ms * 1e-9:.1f} TFLOP/s) plain={plain:.4f}ms "
-                f"sdpa={lib:.4f}ms ({flops / lib * 1e-9:.1f} TFLOP/s) "
+                f"({flops / ms * 1e-9:.1f} TFLOP/s) device={dev_ms:.4f}ms "
+                f"plain={plain:.4f}ms sdpa={lib:.4f}ms "
+                f"({flops / lib * 1e-9:.1f} TFLOP/s) device={lib_dev:.4f}ms "
                 f"bound={bms:.4f}ms ({by})")
             if not ok:
                 failures.append(f"flash_attention {name} D={D} S={S} "
@@ -304,19 +398,28 @@ def phase_kernels(torch, state):
             lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
                 q[:, :, None], kh[:, :, :n], vh[:, :, :n], enable_gqa=True),
                 reps=50)
+            dev_ms, _ = device_ms(torch, lambda: flash_decode_fwd(
+                q, kh, vh, pos))
+            lib_dev, _ = device_ms(torch, lambda: (
+                F.scaled_dot_product_attention(
+                    q[:, :, None], kh[:, :, :n], vh[:, :, :n],
+                    enable_gqa=True)))
+            host = host_ms(torch, lambda: flash_decode_fwd(q, kh, vh, pos))
             item = q.element_size()
             nbytes = (2 * Bd * H * D + 2 * Bd * n * KV * D) * item
             bms, by = bound_ms(nbytes, 4 * Bd * H * D * n, name)
             row = dict(kernel="flash_decode", dtype=name, B=Bd, Smax=Smax,
                        pos=pos, max_abs_err=err, lse_max_abs_err=lerr,
-                       ok=ok and lok, ms=ms, plain_ms=plain, library_ms=lib,
-                       bound_ms=bms, bound_by=by)
+                       ok=ok and lok, ms=ms, device_ms=dev_ms, host_ms=host,
+                       plain_ms=plain, library_ms=lib,
+                       library_device_ms=lib_dev, bound_ms=bms, bound_by=by)
             rows.append(row)
             log(f"flash_decode {name} B={Bd} Smax={Smax} pos={pos}: "
                 f"max_abs_err={err:.3g} lse_err={lerr:.3g} "
                 f"({'ok' if ok and lok else 'FAIL'}) kernel={ms:.4f}ms "
-                f"plain={plain:.4f}ms sdpa={lib:.4f}ms bound={bms:.4f}ms "
-                f"({by})")
+                f"device={dev_ms:.4f}ms host={host:.4f}ms "
+                f"plain={plain:.4f}ms sdpa={lib:.4f}ms device="
+                f"{lib_dev:.4f}ms bound={bms:.4f}ms ({by})")
             if not (ok and lok):
                 failures.append(f"flash_decode {name} B={Bd} pos={pos}")
 
@@ -382,9 +485,12 @@ def _recurrent_kernel_checks(torch, rand, rows, failures):
             n = la.numel()
             bms, by = bound_ms(3 * 4 * n, 3 * n, "float32")
             row.update(ms=cuda_ms(torch, lambda: rglru_fwd(la, b), reps=50),
+                       device_ms=device_ms(torch, lambda: rglru_fwd(la, b))[0],
                        plain_ms=cuda_ms(torch, lambda: R.rglru_ref(la, b)),
-                       library_ms=None, bound_ms=bms, bound_by=by)
-            extra = (f" kernel={row['ms']:.4f}ms plain={row['plain_ms']:.4f}"
+                       library_ms=None, library_device_ms=None,
+                       bound_ms=bms, bound_by=by)
+            extra = (f" kernel={row['ms']:.4f}ms device="
+                     f"{row['device_ms']:.4f}ms plain={row['plain_ms']:.4f}"
                      f"ms library=none bound={bms:.4f}ms ({by})")
         rows.append(row)
         report("rglru", f"(1, {S}, 2560) f32", err, ok, extra)
@@ -404,7 +510,7 @@ def _recurrent_kernel_checks(torch, rand, rows, failures):
         err, ok = max_err(torch, got, R.mlstm_chunkwise_ref(
             q, k, v, li, lf, chunk=c), "float32", MLSTM_TOL)
         if c == 256:
-            main = dict(kernel="mlstm", max_abs_err=err, ok=ok)
+            main = dict(kernel="mlstm", S=S, max_abs_err=err, ok=ok)
         rows.append(dict(kernel="mlstm_chunk_check", chunk=c,
                          max_abs_err=err, ok=ok))
         report("mlstm", f"(1, 4, 2048, 384) vs plain chunk {c}", err, ok)
@@ -416,23 +522,24 @@ def _recurrent_kernel_checks(torch, rand, rows, failures):
                      ok=ok))
     report("mlstm", f"(1, 4, {s0}, 384) vs step-recurrent oracle", err, ok)
     c = function("mlstm", "repro_mlstm_chunk", [])()
-    flops = 0
-    for t0 in range(0, S, c):       # the kernel's chunks of this S
-        cl = min(c, S - t0)
-        flops += 4 * cl * cl * dh + 2 * cl * dh * dh
-        if t0 + c < S:              # no state update after the last chunk
-            flops += 2 * cl * dh * dh
-    bms, by = bound_ms(4 * (4 * B * H * S * dh + 2 * B * H * S),
-                       B * H * flops, "float32")
-    main.update(ms=cuda_ms(torch, lambda: mlstm_fwd(q, k, v, li, lf)),
-                plain_ms=cuda_ms(torch, lambda: R.mlstm_chunkwise_ref(
-                    q, k, v, li, lf, chunk=256), reps=5),
-                library_ms=None, bound_ms=bms, bound_by=by, chunk=c)
+    main.update(_mlstm_timing(torch, q, k, v, li, lf, c))
     rows.append(main)
-    log(f"mlstm (1, 4, 2048, 384): kernel={main['ms']:.4f}ms "
-        f"plain={main['plain_ms']:.4f}ms library=none bound={bms:.4f}ms "
-        f"({by}, kernel chunk {c})")
     del q, k, v, li, lf, got
+    # S=4096 (64 chunks): the parity check, times and one call's peak memory
+    S = 4096
+    q = rand((B, S, H, dh), f32).transpose(1, 2) * dh ** -0.5
+    k = rand((B, S, H, dh), f32).transpose(1, 2)
+    v = rand((B, S, H, dh), f32).transpose(1, 2)
+    li = rand((B, S, H), f32).transpose(1, 2)
+    lf = F.logsigmoid(rand((B, S, H), f32)).transpose(1, 2)
+    err, ok = max_err(torch, mlstm_fwd(q, k, v, li, lf),
+                      R.mlstm_chunkwise_ref(q, k, v, li, lf, chunk=256),
+                      "float32", MLSTM_TOL)
+    report("mlstm", f"(1, 4, {S}, 384) vs plain chunk 256", err, ok)
+    long_row = dict(kernel="mlstm", S=S, max_abs_err=err, ok=ok)
+    long_row.update(_mlstm_timing(torch, q, k, v, li, lf, c))
+    rows.append(long_row)
+    del q, k, v, li, lf
 
     # rmsnorm at recurrentgemma's norm shape: 2048 rows of d_model 2560
     N, d = 2048, 2560
@@ -445,18 +552,68 @@ def _recurrent_kernel_checks(torch, rand, rows, failures):
         item = x.element_size()
         bms, by = bound_ms(2 * N * d * item + d * item, 4 * N * d,
                            "float32")
+        def lib():
+            return F.rms_norm(x, (d,), weight=scale, eps=1e-6)
+
+        def kern():
+            return rmsnorm_fwd(x, scale)
         row = dict(kernel="rmsnorm", dtype=name, N=N, d=d, max_abs_err=err,
-                   ok=ok, ms=cuda_ms(torch, lambda: rmsnorm_fwd(x, scale),
-                                     reps=50),
+                   ok=ok, ms=cuda_ms(torch, kern, reps=50),
+                   device_ms=device_ms(torch, kern)[0],
+                   host_ms=host_ms(torch, kern),
                    plain_ms=cuda_ms(torch, lambda: R.rmsnorm_ref(x, scale)),
-                   library_ms=cuda_ms(torch, lambda: F.rms_norm(
-                       x, (d,), weight=scale, eps=1e-6), reps=50),
+                   library_ms=cuda_ms(torch, lib, reps=50),
+                   library_device_ms=device_ms(torch, lib)[0],
+                   library_host_ms=host_ms(torch, lib),
                    bound_ms=bms, bound_by=by)
         rows.append(row)
         report("rmsnorm", f"({N}, {d}) {name}", err, ok,
-               f" kernel={row['ms']:.4f}ms plain={row['plain_ms']:.4f}ms "
-               f"rms_norm={row['library_ms']:.4f}ms bound={bms:.4f}ms "
-               f"({by})")
+               f" kernel={row['ms']:.4f}ms device={row['device_ms']:.4f}ms "
+               f"host={row['host_ms']:.4f}ms plain={row['plain_ms']:.4f}ms "
+               f"rms_norm={row['library_ms']:.4f}ms device="
+               f"{row['library_device_ms']:.4f}ms host="
+               f"{row['library_host_ms']:.4f}ms bound={bms:.4f}ms ({by})")
+
+
+def _mlstm_timing(torch, q, k, v, li, lf, c):
+    """Times, bounds, CUDA kernels per call and one call's peak memory of
+    the mlstm kernels at q's shape (kernel chunk ``c``)."""
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.mlstm import mlstm_fwd
+
+    B, H, S, dh = q.shape
+    flops = 0
+    for t0 in range(0, S, c):       # the kernels' chunks of this S
+        cl = min(c, S - t0)
+        flops += 4 * cl * cl * dh   # q k^T and P v
+        if t0:                      # q C: the first chunk has no state
+            flops += 2 * cl * dh * dh
+        if t0 + c < S:              # no state update after the last chunk
+            flops += 2 * cl * dh * dh
+    nbytes = 4 * (4 * B * H * S * dh + 2 * B * H * S)
+    bms, by = bound_ms(nbytes, MLSTM_SPLIT_PASSES * B * H * flops, "tf32")
+    bms_f32, _ = bound_ms(nbytes, B * H * flops, "float32")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = mlstm_fwd(q, k, v, li, lf)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    ms = cuda_ms(torch, lambda: mlstm_fwd(q, k, v, li, lf))
+    dev, kernels = device_ms(torch, lambda: mlstm_fwd(q, k, v, li, lf))
+    plain = cuda_ms(torch, lambda: R.mlstm_chunkwise_ref(
+        q, k, v, li, lf, chunk=256), reps=5)
+    log(f"mlstm ({B}, {H}, {S}, {dh}): kernel={ms:.4f}ms device={dev:.4f}ms "
+        f"plain={plain:.4f}ms library=none bound={bms:.4f}ms ({by}, "
+        f"{MLSTM_SPLIT_PASSES}xTF32 at {PEAK_OPS_S['tf32'] / 1e12:.0f} "
+        f"TFLOP/s; {bms_f32:.4f}ms at the f32 rate) kernel chunk {c}; one "
+        f"call's peak memory {peak / 2**20:.1f} MiB; CUDA kernels per call "
+        f"{kernels}")
+    return dict(ms=ms, device_ms=dev, plain_ms=plain, library_ms=None,
+                library_device_ms=None, bound_ms=bms, bound_by=by,
+                bound_ms_f32=bms_f32, chunk=c, peak_bytes=peak,
+                cuda_kernels_per_call=kernels)
 
 
 def _plans(cfg):
@@ -625,17 +782,19 @@ def _trace_decode(torch, cfg, params):
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) / 3
         avgs = prof.key_averages()
-
-        def dev(a):
-            return getattr(a, "self_device_time_total",
-                           getattr(a, "self_cuda_time_total", 0.0))
-        busy = sum(dev(a) for a in avgs) / 3 / 1e6     # us -> s per step
-        top_dev = sorted(avgs, key=dev, reverse=True)[:8]
+        dev = _device_us
+        # device work only: a CPU op's self device time repeats its
+        # kernels', so a sum over every event counts them twice
+        kernels = device_events(prof)
+        busy = sum(dev(a) for a in kernels) / 3 / 1e6  # us -> s per step
+        both = sum(dev(a) for a in avgs) / 3 / 1e6
+        top_dev = sorted(kernels, key=dev, reverse=True)[:8]
         top_cpu = sorted(avgs, key=lambda a: a.self_cpu_time_total,
                          reverse=True)[:8]
         log(f"trace {cfg.name} {label}: {wall * 1e3:.2f} ms/step wall, "
             f"device busy {busy * 1e3:.2f} ms (idle share "
-            f"{1 - busy / wall:.3f})")
+            f"{1 - busy / wall:.3f}; the sum over every event, kernels "
+            f"and the ops that launched them, reads {both * 1e3:.2f} ms)")
         for a in top_dev:
             log(f"  device {dev(a) / 3e3:8.3f} ms/step  x{a.count // 3:<5d} "
                 f"{a.key[:70]}")
@@ -964,8 +1123,8 @@ KERNELS = {
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:18", ()),
 }
-NUMBERS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-           "library_ms")
+NUMBERS = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+           "bound_by", "library_ms", "library_device_ms")
 
 
 def kernels_line(state):
@@ -995,7 +1154,7 @@ def kernels_line(state):
         "flash_decode": pick("flash_decode", dtype="bfloat16", B=1,
                              Smax=2048, pos=63),
         "rglru": pick("rglru", S=2048),
-        "mlstm": pick("mlstm"),
+        "mlstm": pick("mlstm", S=2048),
         "rmsnorm": pick("rmsnorm", dtype="bfloat16"),
     }
     out = []
@@ -1004,6 +1163,20 @@ def kernels_line(state):
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": rep, "launches": sum(by_path.values()),
                  "launches_by_path": by_path, **main_rows[name]}
+        if name == "mlstm":
+            r = pick_row("mlstm", S=2048)
+            entry.update({k: r[k] for k in ("bound_ms_f32", "peak_bytes",
+                                             "cuda_kernels_per_call")})
+            entry["at_S_4096"] = {k: pick_row("mlstm", S=4096)[k]
+                                  for k in NUMBERS + ("peak_bytes",)}
+        if name == "rmsnorm":
+            r = pick_row("rmsnorm", dtype="bfloat16")
+            entry.update(host_ms=r["host_ms"],
+                         library_host_ms=r["library_host_ms"])
+            entry["at_float32"] = pick("rmsnorm", dtype="float32")
+        if name == "flash_decode":
+            entry["host_ms"] = pick_row("flash_decode", dtype="bfloat16",
+                                        B=1, Smax=2048, pos=63)["host_ms"]
         if name == "flash_attention":
             # the CUDA kernel's own route at these shapes (bf16: wgmma)
             entry["cuda_route"] = pick_row(

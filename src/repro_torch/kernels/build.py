@@ -45,7 +45,7 @@ HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
-_FNS: Dict[str, object] = {}
+_FNS: Dict[tuple, object] = {}
 
 
 def reset_launches():
@@ -135,26 +135,48 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def function(name: str, symbol: str, argtypes):
+def function(name: str, symbol: str, argtypes, restype=ctypes.c_int):
     """A C entry point of kernel ``name``, typed once and cached.
 
     ``argtypes`` must name ``c_void_p`` for every pointer and the stream,
     or ctypes would pass them as 32-bit ints."""
-    key = f"{name}:{symbol}"
+    key = (name, symbol)
     fn = _FNS.get(key)
     if fn is None:
         fn = getattr(load(name), symbol)
-        fn.restype = ctypes.c_int
+        fn.restype = restype
         fn.argtypes = argtypes
         _FNS[key] = fn
     return fn
 
 
+_CONSTS: Dict[tuple, int] = {}
+
+
+def constant(name: str, symbol: str) -> int:
+    """An int that kernel ``name``'s library reports (a tile size, a
+    limit), read once."""
+    key = (name, symbol)
+    val = _CONSTS.get(key)
+    if val is None:
+        val = _CONSTS[key] = function(name, symbol, [])()
+    return val
+
+
+# The launch path's device and stream queries, as plain ints: the public
+# ``torch.cuda.current_stream`` builds a Stream object on every call.  A
+# build of torch without CUDA has neither (and launches nothing).
+_get_device = getattr(torch._C, "_cuda_getDevice", None)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+_SAME_DEVICE = contextlib.nullcontext()
+
+
 def on_device(device):
     """Make ``device`` current for a launch, unless it already is."""
-    if device.index is None or device.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(device)
+    idx = device.index
+    if idx is None or idx == (_get_device or torch.cuda.current_device)():
+        return _SAME_DEVICE
+    return torch.cuda.device(idx)
 
 
 def check(name: str, code: int):
@@ -171,17 +193,19 @@ def validate(name: str, tensors, *, dtypes=tuple(DTYPE_CODES),
              head_dims=HEAD_DIMS):
     """Common checks before a launch: CUDA, one device, a dtype of
     ``dtypes``, a contiguous last axis and, unless ``head_dims`` is None, a
-    last axis (head_dim) the kernel is compiled for."""
+    last axis (head_dim) the kernel is compiled for.  Devices are compared
+    by index (``get_device``), without building device objects."""
     t0 = tensors[0]
-    if t0.device.type != "cuda":
+    if not t0.is_cuda:
         raise ValueError(f"{name}: tensors must be on a CUDA device, got "
                          f"{t0.device}")
     dtype = t0.dtype
     if dtype not in dtypes:
         raise TypeError(f"{name}: dtype {dtype} not supported "
                         f"({sorted(map(str, dtypes))})")
+    dev = t0.get_device()
     for t in tensors:
-        if t.device != t0.device or t.dtype != dtype:
+        if t.dtype != dtype or t.get_device() != dev:
             raise ValueError(f"{name}: mixed devices/dtypes "
                              f"{[(x.device, x.dtype) for x in tensors]}")
         if t.stride(-1) != 1:
@@ -192,8 +216,15 @@ def validate(name: str, tensors, *, dtypes=tuple(DTYPE_CODES),
                          f"(have {head_dims})")
 
 
-def stream_ptr(device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def stream_ptr(device) -> int:
+    """The current CUDA stream of ``device`` as an int (``c_void_p`` in
+    the entry points' argtypes)."""
+    idx = device.index
+    if idx is None:
+        idx = (_get_device or torch.cuda.current_device)()
+    if _raw_stream is not None:
+        return _raw_stream(idx)
+    return torch.cuda.current_stream(idx).cuda_stream
 
 
 def strides_arg(*tensors_dims) -> ctypes.Array:

@@ -35,7 +35,7 @@ def flash_decode_fwd(q, k, v, pos: int, *, return_lse: bool = False):
     pos = int(pos)
     if pos < 0:
         raise ValueError(f"{NAME}: pos {pos} < 0")
-    max_g = K.function(NAME, "repro_flash_decode_max_g", [])()
+    max_g = K.constant(NAME, "repro_flash_decode_max_g")
     if H % KV or H // KV > max_g:
         raise ValueError(f"{NAME}: {H} heads over {KV} kv heads; the kernel "
                          f"takes at most {max_g} query heads per kv head")
@@ -44,23 +44,26 @@ def flash_decode_fwd(q, k, v, pos: int, *, return_lse: bool = False):
             raise ValueError(f"{NAME}: rows must be 16-byte aligned "
                              f"(strides {t.stride()})")
     n_keys = min(pos + 1, Smax)
-    chunk = K.function(NAME, "repro_flash_decode_chunk", [])()
-    nsplit = -(-n_keys // chunk)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
-    lse = torch.empty((B, H), **f32) if return_lse else None
-    o_part = torch.empty((B, H, nsplit, D), **f32)
-    m_part = torch.empty((B, H, nsplit), **f32)
-    l_part = torch.empty((B, H, nsplit), **f32)
+    nsplit = -(-n_keys // K.constant(NAME, "repro_flash_decode_chunk"))
+    dev = q.device
+    out = torch.empty((B, H, D), dtype=q.dtype, device=dev)
+    lse = torch.empty((B, H), dtype=torch.float32, device=dev) \
+        if return_lse else None
+    # the splits' partial results, (B,H,nsplit,D) then twice (B,H,nsplit)
+    # f32, in one allocation
+    rows = B * H * nsplit
+    part = torch.empty(rows * (D + 2), dtype=torch.float32, device=dev)
+    o_part = part.data_ptr()
+    m_part = o_part + 4 * rows * D
+    l_part = m_part + 4 * rows
     fn = K.function(NAME, "repro_flash_decode_fwd", ARGTYPES)
     strides = K.strides_arg((q, (0, 1)), (k, (0, 2, 1)), (v, (0, 2, 1)),
                             (out, (0, 1)))
-    with K.on_device(q.device):
+    with K.on_device(dev):
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  lse.data_ptr() if lse is not None else None,
-                  o_part.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
-                  K.DTYPE_CODES[q.dtype], B, H, KV, n_keys, D, strides,
-                  D ** -0.5, K.stream_ptr(q.device))
+                  lse.data_ptr() if lse is not None else None, o_part,
+                  m_part, l_part, K.DTYPE_CODES[q.dtype], B, H, KV, n_keys,
+                  D, strides, D ** -0.5, K.stream_ptr(dev))
     K.check(NAME, code)
     K.LAUNCHES[NAME] += 1
     return (out, lse) if return_lse else out

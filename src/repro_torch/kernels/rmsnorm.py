@@ -22,24 +22,26 @@ ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
 
 
 def rmsnorm_fwd(x, scale, *, eps: float = 1e-6) -> torch.Tensor:
-    """x: (N,d) f32/bf16 with a contiguous last axis; scale: (d,) f32 or
-    bf16, on a CUDA device -> (N,d) in x's dtype, contiguous."""
+    """x: (N,d) f32/bf16 with a contiguous last axis and any row stride;
+    scale: (d,) f32 or bf16, on a CUDA device -> (N,d) in x's dtype,
+    contiguous.  One launch: the kernel takes every d and every row
+    alignment itself (csrc/rmsnorm.cu)."""
     K.validate(NAME, (x,), head_dims=None)
     if x.ndim != 2:
         raise ValueError(f"{NAME}: x must be (N,d), got {tuple(x.shape)}")
     N, d = x.shape
-    if scale.shape != (d,) or scale.device != x.device or \
+    if scale.shape != (d,) or scale.get_device() != x.get_device() or \
             scale.dtype not in K.DTYPE_CODES or not scale.is_contiguous():
         raise ValueError(f"{NAME}: scale must be a contiguous ({d},) f32 or "
                          f"bf16 tensor on {x.device}, got "
                          f"{tuple(scale.shape)} {scale.dtype} {scale.device}")
-    out = torch.empty((N, d), dtype=x.dtype, device=x.device)
+    dev = x.device
+    out = torch.empty_like(x, memory_format=torch.contiguous_format)
     fn = K.function(NAME, "repro_rmsnorm_fwd", ARGTYPES)
-    with K.on_device(x.device):
+    with K.on_device(dev):
         code = fn(x.data_ptr(), scale.data_ptr(), out.data_ptr(),
                   K.DTYPE_CODES[x.dtype], K.DTYPE_CODES[scale.dtype], N, d,
-                  x.stride(0), out.stride(0), float(eps),
-                  K.stream_ptr(x.device))
+                  x.stride(0), d, float(eps), K.stream_ptr(dev))
     K.check(NAME, code)
     K.LAUNCHES[NAME] += 1
     return out

@@ -169,7 +169,12 @@ def test_rglru_cuda_vs_plain(dev, B, S, dr):
 
 @pytest.mark.parametrize("B,H,S,dh", [(1, 2, 64, 16), (2, 2, 128, 32),
                                       (1, 1, 96, 16), (1, 2, 200, 100),
-                                      (1, 4, 512, 384)])
+                                      (1, 4, 512, 384),
+                                      # one row, one row past a chunk
+                                      (1, 2, 1, 16), (2, 2, 65, 384),
+                                      # dh not a multiple of 4 (element
+                                      # copies), dh > 384 (two value tiles)
+                                      (1, 2, 150, 30), (1, 1, 130, 512)])
 def test_mlstm_cuda_vs_plain(dev, B, H, S, dh):
     rng = np.random.default_rng(3)
     q = _t(rng, (B, H, S, dh), torch.float32, dev) * dh ** -0.5
@@ -179,7 +184,7 @@ def test_mlstm_cuda_vs_plain(dev, B, H, S, dh):
     n0 = LAUNCHES["mlstm"]
     got = ops.mlstm_chunkwise(q, k, v, li, lf)
     torch.cuda.synchronize()
-    assert LAUNCHES["mlstm"] == n0 + 1
+    assert LAUNCHES["mlstm"] == n0 + 1 and bool(torch.isfinite(got).all())
     # the step-recurrent oracle, and the chunkwise plain version at two
     # chunks other than the kernel's own
     for want in (ref.mlstm_ref(q, k, v, li, lf),
@@ -188,19 +193,67 @@ def test_mlstm_cuda_vs_plain(dev, B, H, S, dh):
         torch.testing.assert_close(got, want, atol=5e-4, rtol=5e-3)
 
 
-def test_mlstm_cuda_strided_inputs(dev):
+@pytest.mark.parametrize("dh", [32, 30, 384])
+def test_mlstm_cuda_strided_inputs(dev, dh):
     """The model passes q/k/v as permuted einsum outputs and the gates as
-    transposed views: the kernel reads them through their strides."""
+    transposed views: the kernel reads them through their strides (in
+    16-byte copies, or element by element where dh is not a multiple of
+    4)."""
     rng = np.random.default_rng(4)
-    B, S, H, dh = 2, 130, 3, 32
+    B, S, H = 2, 130, 3
     q = _t(rng, (B, S, H, dh), torch.float32, dev).transpose(1, 2)
     k = _t(rng, (B, S, H, dh), torch.float32, dev).transpose(1, 2)
     v = _t(rng, (B, S, H, dh), torch.float32, dev).transpose(1, 2)
     li, lf = (g.transpose(1, 2) for g in _gates(rng, (B, S, H), dev))
+    n0 = LAUNCHES["mlstm"]
     got = ops.mlstm_chunkwise(q, k, v, li, lf)
+    torch.cuda.synchronize()
+    assert LAUNCHES["mlstm"] == n0 + 1 and bool(torch.isfinite(got).all())
     want = ref.mlstm_chunkwise_ref(*(t.contiguous()
                                      for t in (q, k, v, li, lf)))
     torch.testing.assert_close(got, want, atol=5e-4, rtol=5e-3)
+
+
+def test_mlstm_cuda_long_sequence(dev):
+    """S=4096 (64 chunks) at xlstm-125m's heads, B=2: the state kernel's
+    scan over 63 chunks against the plain version and the oracle."""
+    rng = np.random.default_rng(9)
+    B, H, S, dh = 2, 4, 4096, 384
+    q = _t(rng, (B, H, S, dh), torch.float32, dev) * dh ** -0.5
+    k = _t(rng, (B, H, S, dh), torch.float32, dev)
+    v = _t(rng, (B, H, S, dh), torch.float32, dev)
+    li, lf = _gates(rng, (B, H, S), dev)
+    n0 = LAUNCHES["mlstm"]
+    got = ops.mlstm_chunkwise(q, k, v, li, lf)
+    torch.cuda.synchronize()
+    assert LAUNCHES["mlstm"] == n0 + 1 and bool(torch.isfinite(got).all())
+    for want in (ref.mlstm_chunkwise_ref(q, k, v, li, lf, chunk=256),
+                 ref.mlstm_ref(q, k, v, li, lf)):
+        torch.testing.assert_close(got, want, atol=5e-4, rtol=5e-3)
+
+
+@pytest.mark.parametrize("dh", [16, 384])
+def test_mlstm_cuda_stabilizer_stress(dev, dh):
+    """Large input gates (li in [5, 10]) and forget gates near 1 (lf ~
+    -1e-3) over 18 chunks: every exponent of the rescaling stays <= 0, so
+    the output is finite.  q and k are positive, so that q.n does not
+    cancel (tests/test_torch_kernels.py says why)."""
+    rng = np.random.default_rng(12)
+    B, H, S = 1, 2, 18 * 64 - 5
+    q = _t(rng, (B, H, S, dh), torch.float32, dev).abs() * dh ** -0.5
+    k = _t(rng, (B, H, S, dh), torch.float32, dev).abs()
+    v = _t(rng, (B, H, S, dh), torch.float32, dev)
+    li = torch.from_numpy(rng.uniform(5.0, 10.0, (B, H, S)).astype(
+        np.float32)).to(dev)
+    lf = torch.from_numpy((-1e-3 * rng.uniform(0.5, 1.5, (B, H, S))).astype(
+        np.float32)).to(dev)
+    n0 = LAUNCHES["mlstm"]
+    got = ops.mlstm_chunkwise(q, k, v, li, lf)
+    torch.cuda.synchronize()
+    assert LAUNCHES["mlstm"] == n0 + 1 and bool(torch.isfinite(got).all())
+    for want in (ref.mlstm_chunkwise_ref(q, k, v, li, lf, chunk=64),
+                 ref.mlstm_ref(q, k, v, li, lf)):
+        torch.testing.assert_close(got, want, atol=5e-4, rtol=5e-3)
 
 
 @pytest.mark.parametrize("N,d", [(32, 64), (128, 96), (2048, 2560)])
@@ -213,6 +266,28 @@ def test_rmsnorm_cuda_vs_plain(dev, N, d, dtype):
     got = ops.rmsnorm(x, s)
     torch.cuda.synchronize()
     assert LAUNCHES["rmsnorm"] == n0 + 1 and got.dtype == dtype
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(got.float(), ref.rmsnorm_ref(x, s).float(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("N,d,col0", [
+    (64, 100, 0), (33, 2561, 0),     # d not a multiple of the vector width
+    (64, 2560, 1), (17, 100, 3),     # rows x[:, col0:] not 16-byte aligned
+    (1, 2560, 0), (1, 9000, 1),      # one row; wider than the registers
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_cuda_any_width_and_alignment(dev, N, d, col0, dtype,
+                                              scale_dtype):
+    rng = np.random.default_rng(d + col0)
+    x = _t(rng, (N, d + col0), dtype, dev)[:, col0:]
+    s = _t(rng, (d,), scale_dtype, dev)
+    n0 = LAUNCHES["rmsnorm"]
+    got = ops.rmsnorm(x, s)
+    torch.cuda.synchronize()
+    assert LAUNCHES["rmsnorm"] == n0 + 1 and got.dtype == dtype
+    assert got.is_contiguous() and bool(torch.isfinite(got).all())
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
     torch.testing.assert_close(got.float(), ref.rmsnorm_ref(x, s).float(),
                                atol=tol, rtol=tol)

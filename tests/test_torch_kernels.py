@@ -300,6 +300,133 @@ def test_mlstm_chunk_invariance_exact_in_float64():
                                rtol=1e-9)
 
 
+def _tf32(x):
+    """Round f32 to TF32 (10 mantissa bits), to nearest with ties away from
+    zero, as ``cvt.rna.tf32.f32``: add half of the dropped part to the
+    magnitude bits, then clear them."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as the CUDA kernel's split product: a = hi + lo with hi =
+    tf32(a), lo = tf32(a - hi), a b ~ lo hi' + hi lo' + hi hi'."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _mlstm_chunk_parallel(q, k, v, li, lf, *, chunk=64, split=True):
+    """Plain-torch emulation of the chunk-parallel CUDA kernel
+    (``csrc/mlstm.cu``), in q's dtype.
+
+    1. per full chunk, the chunk-local state update dC with its local key
+       max mx (no incoming state); 2. the rescaling scan across chunks,
+       which keeps the state *entering* each chunk; 3. every chunk's
+       outputs from its entering state.  ``split``: products as 3xTF32
+       (f32 only), else plain matmuls."""
+    mm = _mm_3xtf32 if split else torch.matmul
+    B, H, S, dh = q.shape
+    nc = -(-S // chunk)
+    C = q.new_zeros((B, H, dh, dh))
+    n = q.new_zeros((B, H, dh))
+    m = q.new_zeros((B, H))
+    entering = [(C, n, m)]
+    for c in range(nc - 1):                  # steps 1 and 2
+        sl = slice(c * chunk, (c + 1) * chunk)
+        b = torch.cumsum(lf[..., sl], -1)
+        total = b[..., -1]
+        kwlog = li[..., sl] + (total[..., None] - b)
+        mx = kwlog.amax(-1)
+        kw = k[:, :, sl] * torch.exp(kwlog - mx[..., None])[..., None]
+        dC, dn = mm(kw.transpose(-1, -2), v[:, :, sl]), kw.sum(-2)
+        m_new = torch.maximum(m + total, mx)
+        a = torch.exp(m + total - m_new)     # exponents <= 0
+        bw = torch.exp(mx - m_new)
+        C = a[..., None, None] * C + bw[..., None, None] * dC
+        n = a[..., None] * n + bw[..., None] * dn
+        m = m_new
+        entering.append((C, n, m))
+    hs = []
+    for c, (C, n, m) in enumerate(entering):  # step 3
+        sl = slice(c * chunk, min((c + 1) * chunk, S))
+        qc, kc, vc = q[:, :, sl], k[:, :, sl], v[:, :, sl]
+        cl = qc.shape[2]
+        b = torch.cumsum(lf[..., sl], -1)
+        D = li[..., sl][..., None, :] + b[..., :, None] - b[..., None, :]
+        D = torch.where(torch.ones(cl, cl, dtype=torch.bool).tril(), D,
+                        ref.LOG_EPS)
+        m_j = torch.maximum(D.amax(-1), m[..., None] + b)
+        P = torch.exp(D - m_j[..., None]) * mm(qc, kc.transpose(-1, -2))
+        sw = torch.exp(m[..., None] + b - m_j)
+        num = mm(P, vc) + sw[..., None] * mm(qc, C)
+        den = torch.maximum(((qc @ n[..., None])[..., 0] * sw
+                             + P.sum(-1)).abs(), torch.exp(-m_j))
+        hs.append(num / den[..., None])
+    return torch.cat(hs, 2)
+
+
+@pytest.mark.parametrize("B,H,S,dh", [
+    (2, 2, 150, 24),      # ragged last chunk (64, 64, 22), dh % 16 != 0
+    (1, 2, 40, 20),       # S < the chunk
+    (2, 1, 128, 32),      # whole chunks
+])
+def test_mlstm_chunk_parallel_contract(B, H, S, dh):
+    """The CUDA kernel's chunk-parallel arithmetic (local maxima, the
+    rescaling scan, 3xTF32 products) against the Pallas kernel in
+    interpret mode and the reference's step-recurrent oracle, at the
+    mlstm tolerance."""
+    ins = _mlstm_inputs(np.random.default_rng(S * dh + B), B, H, S, dh)
+    got = _mlstm_chunk_parallel(*map(torch.from_numpy, ins)).numpy()
+    assert np.isfinite(got).all()
+    pallas = mlstm_chunkwise_fwd(*map(jnp.asarray, ins), chunk=64,
+                                 interpret=True)
+    np.testing.assert_allclose(got, np.asarray(pallas), atol=5e-4,
+                               rtol=5e-3)
+    oracle = np.asarray(jref.mlstm_ref(*map(jnp.asarray, ins)))
+    np.testing.assert_allclose(got, oracle, atol=5e-4, rtol=5e-3)
+
+
+@pytest.mark.parametrize("S", [150, 40])
+def test_mlstm_chunk_parallel_exact_in_float64(S):
+    """In float64 the rescaled chunk-local states are the step-recurrent
+    oracle's to 1e-9: the rescaling is exact math, not an approximation."""
+    ins = tuple(torch.from_numpy(a).double() for a in _mlstm_inputs(
+        np.random.default_rng(S), 2, 2, S, 24))
+    got = _mlstm_chunk_parallel(*ins, split=False)
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(got, ref.mlstm_ref(*ins), atol=1e-9,
+                               rtol=1e-9)
+
+
+def test_mlstm_chunk_parallel_stabilizer_stress():
+    """Large input gates (li in [5, 10]) and forget gates near 1 (lf ~
+    -1e-3) over 18 chunks: the stabilizer's exponents stay <= 0, so the
+    output is finite and within the mlstm tolerance of the Pallas kernel
+    and the oracle.  q and k are taken positive so that q.n, summed over
+    ~1000 remembered keys, does not cancel: with signed keys the
+    denominator passes near 0 and even the f32 oracle is off its float64
+    self by more than the tolerance there."""
+    rng = np.random.default_rng(12)
+    B, H, S, dh = 1, 2, 18 * 64 - 5, 16
+    q, k, v = _mlstm_inputs(rng, B, H, S, dh)[:3]
+    q, k = np.abs(q), np.abs(k)
+    li = rng.uniform(5.0, 10.0, (B, H, S)).astype(np.float32)
+    lf = (-1e-3 * rng.uniform(0.5, 1.5, (B, H, S))).astype(np.float32)
+    ins = (q, k, v, li, lf)
+    got = _mlstm_chunk_parallel(*map(torch.from_numpy, ins)).numpy()
+    assert np.isfinite(got).all()
+    oracle = np.asarray(jref.mlstm_ref(*map(jnp.asarray, ins)))
+    np.testing.assert_allclose(got, oracle, atol=5e-4, rtol=5e-3)
+    pallas = mlstm_chunkwise_fwd(*map(jnp.asarray, ins), chunk=64,
+                                 interpret=True)
+    np.testing.assert_allclose(got, np.asarray(pallas), atol=5e-4,
+                               rtol=5e-3)
+    np.testing.assert_allclose(ref.mlstm_chunkwise_ref(
+        *map(torch.from_numpy, ins), chunk=64), oracle, atol=5e-4,
+        rtol=5e-3)
+
+
 # --- rmsnorm -----------------------------------------------------------------
 
 @pytest.mark.parametrize("shape", [(32, 64), (128, 96)])
