@@ -15,8 +15,12 @@ phases (each failure exits non-zero and prints no result line):
             S=4096 > window) and at stablelm-3b's (H 32, KV 32, D 80), f32
             (the FMA route) and bf16 (the wgmma route), with TFLOP/s,
             against ``scaled_dot_product_attention``; flash-decode at
-            granite-8b's;
-            rglru at (1, 2048, 2560) and an odd S; mlstm at (1, 4, 2048,
+            granite-8b's heads (B=1 at pos 0, 17, 63 and 4095; B=8 at pos
+            4095) and at recurrentgemma-2b's (G=10, D=256), with the CUDA
+            kernels of one call (one) and the kernel's plan (heads per CTA,
+            slices, CTAs per slice); rglru at (1, 2048, 2560), an odd S,
+            S=4096 and slow decay (log_a ~ -1e-4), with the device work of
+            one call (a memset and one kernel); mlstm at (1, 4, 2048,
             384) against the chunkwise plain version at three chunks and the
             step-recurrent oracle, and at S=4096 (times, the CUDA kernels of
             one call and its peak memory); rmsnorm at (2048, 2560), f32 and
@@ -183,9 +187,10 @@ def device_ms(torch, fn, calls: int = 20, warmup: int = 3):
     calls), and that work per call as {kernel name: {"launches": n,
     "device_ms": t}}.
 
-    The profiler now and then records no device activity at all; it is
-    asked three times, and then CUDA events around ``calls`` back-to-back
-    calls stand in (logged, and with no kernel names)."""
+    The profiler now and then records no device activity at all, or only
+    some of the calls' kernels; it is asked three times, and then CUDA
+    events around ``calls`` back-to-back calls stand in (logged, and with
+    no kernel names)."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
@@ -198,13 +203,13 @@ def device_ms(torch, fn, calls: int = 20, warmup: int = 3):
             torch.cuda.synchronize()
         evs = device_events(prof)
         total = sum(_device_us(a) for a in evs)
-        if total > 0:
+        if total > 0 and all(a.count % calls == 0 for a in evs):
             return total / calls / 1e3, {
                 _kernel_name(a.key): {"launches": a.count / calls,
                                       "device_ms": _device_us(a) / calls / 1e3}
                 for a in evs}
-        log(f"torch.profiler recorded no device time (attempt "
-            f"{attempt + 1} of 3)")
+        log(f"torch.profiler recorded {sum(a.count for a in evs)} device "
+            f"events over {calls} calls (attempt {attempt + 1} of 3)")
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -220,8 +225,7 @@ def _kernel_name(key: str) -> str:
     """A demangled kernel name without namespaces, return type and
     argument list: ``void (anonymous namespace)::f<24>(float ...)`` ->
     ``f<24>``."""
-    name = key.split("(float", 1)[0].split("(int", 1)[0]
-    name = name.replace("(anonymous namespace)::", "")
+    name = key.replace("(anonymous namespace)::", "").split("(", 1)[0]
     return name.removeprefix("void ").strip()
 
 
@@ -351,9 +355,78 @@ def _fa_checks(torch, rand, rows, failures, H, KV, D, cases):
             del q, k, v, got, want, live
 
 
-def phase_kernels(torch, state):
+def _fd_checks(torch, rand, rows, failures, H, KV, D, cases):
+    """flash-decode against its plain version at (H, KV, D) for each (B,
+    Smax, pos) of ``cases``, f32 and bf16: kernel, plain and SDPA times,
+    host time, and the CUDA kernels of one call."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.flash_decode import flash_decode_fwd, plan
+
+    dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    # caches (B,Smax,KV,D), passed head-major as views
+    for Bd, Smax, pos in cases:
+        for name, dt in dts.items():
+            q = rand((Bd, H, D), dt)
+            kc = rand((Bd, Smax, KV, D), dt)
+            vc = rand((Bd, Smax, KV, D), dt)
+            kh, vh = kc.transpose(1, 2), vc.transpose(1, 2)
+            got, lse = flash_decode_fwd(q, kh, vh, pos, return_lse=True)
+            want, lse_want = R.flash_decode_ref(q, kc, vc, pos,
+                                                return_lse=True)
+            torch.cuda.synchronize()
+            err, ok = max_err(torch, got, want, name)
+            lerr, lok = max_err(torch, lse, lse_want, "float32")
+
+            def kern():
+                return flash_decode_fwd(q, kh, vh, pos)
+            n = pos + 1
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    q[:, :, None], kh[:, :, :n], vh[:, :, :n],
+                    enable_gqa=True)
+            ms = cuda_ms(torch, kern, reps=50)
+            plain = cuda_ms(torch, lambda: R.flash_decode_ref(q, kc, vc,
+                                                              pos), reps=10)
+            lib = cuda_ms(torch, sdpa, reps=50)
+            dev_ms, kernels = device_ms(torch, kern)
+            lib_dev, _ = device_ms(torch, sdpa)
+            host = host_ms(torch, kern)
+            per_call = sum(k["launches"] for k in kernels.values()) \
+                if kernels else None
+            item = q.element_size()
+            nbytes = (2 * Bd * H * D + 2 * Bd * n * KV * D) * item
+            bms, by = bound_ms(nbytes, 4 * Bd * H * D * n, name)
+            fd_plan = plan(Bd, H, KV, n, D)
+            row = dict(kernel="flash_decode", dtype=name, B=Bd, Smax=Smax,
+                       pos=pos, H=H, KV=KV, D=D, max_abs_err=err,
+                       lse_max_abs_err=lerr, ok=ok and lok, ms=ms,
+                       device_ms=dev_ms, host_ms=host, plain_ms=plain,
+                       library_ms=lib, library_device_ms=lib_dev,
+                       bound_ms=bms, bound_by=by, plan=fd_plan,
+                       cuda_kernels_per_call=per_call)
+            rows.append(row)
+            log(f"flash_decode {name} B={Bd} H={H} KV={KV} D={D} "
+                f"Smax={Smax} pos={pos}: max_abs_err={err:.3g} "
+                f"lse_err={lerr:.3g} ({'ok' if ok and lok else 'FAIL'}) "
+                f"kernel={ms:.4f}ms device={dev_ms:.4f}ms host={host:.4f}ms "
+                f"plain={plain:.4f}ms sdpa={lib:.4f}ms device="
+                f"{lib_dev:.4f}ms bound={bms:.4f}ms ({by}); {fd_plan[0]} "
+                f"heads a CTA, {fd_plan[1]} slices a kv head, {fd_plan[2]} "
+                f"CTAs a slice; CUDA kernels per call {kernels}")
+            if not (ok and lok):
+                failures.append(f"flash_decode {name} B={Bd} H={H} "
+                                f"pos={pos}")
+            if per_call is not None and per_call != 1:
+                failures.append(f"flash_decode {name} B={Bd} H={H} "
+                                f"pos={pos}: {per_call} CUDA kernels per "
+                                f"call, not 1")
+            del q, kc, vc, kh, vh
+
+
+def phase_kernels(torch, state):
     from repro_torch.kernels import ref as R
     from repro_torch.kernels.flash_decode import flash_decode_fwd
 
@@ -376,52 +449,13 @@ def phase_kernels(torch, state):
                ((2048, 2048), (4096, 2048)))
     _fa_checks(torch, rand, rows, failures, 32, 32, 80, ((2048, 0),))
 
-    # flash decode: caches (B,Smax,KV,D), passed head-major as views
-    for Bd, Smax, pos in ((1, 4096, 0), (1, 4096, 17), (1, 4096, 4095),
-                          (8, 4096, 4095), (1, 2048, 63)):
-        for name, dt in dts.items():
-            q = rand((Bd, H, D), dt)
-            kc = rand((Bd, Smax, KV, D), dt)
-            vc = rand((Bd, Smax, KV, D), dt)
-            kh, vh = kc.transpose(1, 2), vc.transpose(1, 2)
-            got, lse = flash_decode_fwd(q, kh, vh, pos, return_lse=True)
-            want, lse_want = R.flash_decode_ref(q, kc, vc, pos,
-                                                return_lse=True)
-            torch.cuda.synchronize()
-            err, ok = max_err(torch, got, want, name)
-            lerr, lok = max_err(torch, lse, lse_want, "float32")
-            ms = cuda_ms(torch, lambda: flash_decode_fwd(q, kh, vh, pos),
-                         reps=50)
-            plain = cuda_ms(torch, lambda: R.flash_decode_ref(q, kc, vc,
-                                                              pos), reps=10)
-            n = pos + 1
-            lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                q[:, :, None], kh[:, :, :n], vh[:, :, :n], enable_gqa=True),
-                reps=50)
-            dev_ms, _ = device_ms(torch, lambda: flash_decode_fwd(
-                q, kh, vh, pos))
-            lib_dev, _ = device_ms(torch, lambda: (
-                F.scaled_dot_product_attention(
-                    q[:, :, None], kh[:, :, :n], vh[:, :, :n],
-                    enable_gqa=True)))
-            host = host_ms(torch, lambda: flash_decode_fwd(q, kh, vh, pos))
-            item = q.element_size()
-            nbytes = (2 * Bd * H * D + 2 * Bd * n * KV * D) * item
-            bms, by = bound_ms(nbytes, 4 * Bd * H * D * n, name)
-            row = dict(kernel="flash_decode", dtype=name, B=Bd, Smax=Smax,
-                       pos=pos, max_abs_err=err, lse_max_abs_err=lerr,
-                       ok=ok and lok, ms=ms, device_ms=dev_ms, host_ms=host,
-                       plain_ms=plain, library_ms=lib,
-                       library_device_ms=lib_dev, bound_ms=bms, bound_by=by)
-            rows.append(row)
-            log(f"flash_decode {name} B={Bd} Smax={Smax} pos={pos}: "
-                f"max_abs_err={err:.3g} lse_err={lerr:.3g} "
-                f"({'ok' if ok and lok else 'FAIL'}) kernel={ms:.4f}ms "
-                f"device={dev_ms:.4f}ms host={host:.4f}ms "
-                f"plain={plain:.4f}ms sdpa={lib:.4f}ms device="
-                f"{lib_dev:.4f}ms bound={bms:.4f}ms ({by})")
-            if not (ok and lok):
-                failures.append(f"flash_decode {name} B={Bd} pos={pos}")
+    # flash decode at granite-8b's heads (admission is B=1, pos ~63; long
+    # caches at B=1 and 8) and at recurrentgemma-2b's (G=10, D=256)
+    _fd_checks(torch, rand, rows, failures, H, KV, D,
+               ((1, 4096, 0), (1, 4096, 17), (1, 4096, 4095),
+                (8, 4096, 4095), (1, 2048, 63)))
+    _fd_checks(torch, rand, rows, failures, 10, 1, 256,
+               ((1, 2048, 63), (1, 2048, 2047)))
 
     # the two-shard LSE combine a sequence-sharded decode relies on
     for name, dt in dts.items():
@@ -471,29 +505,41 @@ def _recurrent_kernel_checks(torch, rand, rows, failures):
             failures.append(f"{kernel} {label}")
 
     # rglru: log_a as the model makes it, -8 softplus(1) sigmoid(.), in
-    # (-10.6, 0); recurrentgemma's dr = 2560; an odd S too
-    for S in (2048, 2047):
-        la = -8.0 * math.log1p(math.e) * torch.sigmoid(
-            rand((1, S, 2560), f32))
-        b = rand((1, S, 2560), f32)
+    # (-10.6, 0); recurrentgemma's dr = 2560; an odd S, a longer S, and
+    # slow decay (log_a ~ -1e-4: the carry crosses every tile undamped;
+    # b scaled by sqrt(1 - a^2) as the model does, so that h stays O(1))
+    for S, decay in ((2048, "model"), (2047, "model"), (4096, "model"),
+                     (4096, "slow")):
+        if decay == "slow":
+            la = -1e-4 * (1.0 + 0.25 * rand((1, S, 2560), f32).clamp(-2, 2))
+            b = rand((1, S, 2560), f32) * torch.sqrt(-torch.expm1(2 * la))
+        else:
+            la = -8.0 * math.log1p(math.e) * torch.sigmoid(
+                rand((1, S, 2560), f32))
+            b = rand((1, S, 2560), f32)
         got = rglru_fwd(la, b)
         err, ok = max_err(torch, got, R.rglru_ref(la, b), "float32",
                           RGLRU_TOL)
-        row = dict(kernel="rglru", S=S, max_abs_err=err, ok=ok)
+        row = dict(kernel="rglru", S=S, decay=decay, max_abs_err=err,
+                   ok=ok)
         extra = ""
-        if S == 2048:
+        if S != 2047 and decay == "model":
             n = la.numel()
             bms, by = bound_ms(3 * 4 * n, 3 * n, "float32")
+            dev_ms, kernels = device_ms(torch, lambda: rglru_fwd(la, b))
             row.update(ms=cuda_ms(torch, lambda: rglru_fwd(la, b), reps=50),
-                       device_ms=device_ms(torch, lambda: rglru_fwd(la, b))[0],
+                       device_ms=dev_ms,
                        plain_ms=cuda_ms(torch, lambda: R.rglru_ref(la, b)),
                        library_ms=None, library_device_ms=None,
-                       bound_ms=bms, bound_by=by)
-            extra = (f" kernel={row['ms']:.4f}ms device="
-                     f"{row['device_ms']:.4f}ms plain={row['plain_ms']:.4f}"
-                     f"ms library=none bound={bms:.4f}ms ({by})")
+                       bound_ms=bms, bound_by=by,
+                       cuda_kernels_per_call=kernels)
+            extra = (f" kernel={row['ms']:.4f}ms device={dev_ms:.4f}ms "
+                     f"plain={row['plain_ms']:.4f}ms library=none "
+                     f"bound={bms:.4f}ms ({by}); device work per call "
+                     f"{kernels}")
         rows.append(row)
-        report("rglru", f"(1, {S}, 2560) f32", err, ok, extra)
+        report("rglru", f"(1, {S}, 2560) f32 {decay} decay", err, ok, extra)
+        del la, b, got
 
     # mlstm at xlstm-125m's heads: H 4, dh 384; q/k/v in the model's
     # permuted layout (einsum outputs), the gates as transposed views
@@ -798,6 +844,10 @@ def _trace_decode(torch, cfg, params):
         for a in top_dev:
             log(f"  device {dev(a) / 3e3:8.3f} ms/step  x{a.count // 3:<5d} "
                 f"{a.key[:70]}")
+        ours = [a for a in kernels if re.search(PORT_KERNELS, a.key)]
+        log("  the port's kernels: " + (", ".join(
+            f"{_kernel_name(a.key)} {dev(a) / 3e3:.3f} ms/step "
+            f"x{a.count // 3}" for a in ours) or "none"))
         for a in top_cpu:
             log(f"  host   {a.self_cpu_time_total / 3e3:8.3f} ms/step  "
                 f"x{a.count // 3:<5d} {a.key[:70]}")
@@ -1123,6 +1173,8 @@ KERNELS = {
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:18", ()),
 }
+# the hand-written kernels' symbols, as the profiler names them
+PORT_KERNELS = r"\b(fa_fwd|fa_wgmma|fd|rglru|mlstm_\w+|rmsnorm)_kernel\b"
 NUMBERS = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
            "bound_by", "library_ms", "library_device_ms")
 
@@ -1152,8 +1204,8 @@ def kernels_line(state):
         "flash_attention": pick("flash_attention", dtype="bfloat16", S=2048,
                                 window=0, D=128),
         "flash_decode": pick("flash_decode", dtype="bfloat16", B=1,
-                             Smax=2048, pos=63),
-        "rglru": pick("rglru", S=2048),
+                             Smax=2048, pos=63, H=32),
+        "rglru": pick("rglru", S=2048, decay="model"),
         "mlstm": pick("mlstm", S=2048),
         "rmsnorm": pick("rmsnorm", dtype="bfloat16"),
     }
@@ -1175,8 +1227,20 @@ def kernels_line(state):
                          library_host_ms=r["library_host_ms"])
             entry["at_float32"] = pick("rmsnorm", dtype="float32")
         if name == "flash_decode":
-            entry["host_ms"] = pick_row("flash_decode", dtype="bfloat16",
-                                        B=1, Smax=2048, pos=63)["host_ms"]
+            r = pick_row("flash_decode", dtype="bfloat16", B=1, Smax=2048,
+                         pos=63, H=32)
+            entry.update(host_ms=r["host_ms"],
+                         cuda_kernels_per_call=r["cuda_kernels_per_call"])
+            for key, kw in (("at_B8_pos4095", dict(B=8, pos=4095, H=32)),
+                            ("at_B1_pos4095", dict(B=1, pos=4095, H=32)),
+                            ("at_G10_D256", dict(B=1, pos=2047, H=10))):
+                r = pick_row("flash_decode", dtype="bfloat16", **kw)
+                entry[key] = {k: r[k] for k in NUMBERS + (
+                    "host_ms", "plan", "cuda_kernels_per_call")}
+        if name == "rglru":
+            entry["cuda_kernels_per_call"] = pick_row(
+                "rglru", S=2048, decay="model")["cuda_kernels_per_call"]
+            entry["at_S_4096"] = pick("rglru", S=4096, decay="model")
         if name == "flash_attention":
             # the CUDA kernel's own route at these shapes (bf16: wgmma)
             entry["cuda_route"] = pick_row(

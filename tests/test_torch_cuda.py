@@ -130,7 +130,10 @@ def test_flash_attention_wgmma_rejects_unaligned_strides(dev):
 
 @pytest.mark.parametrize("B,Smax,H,KV,D", [
     (2, 256, 4, 2, 32), (1, 300, 8, 1, 16), (3, 1024, 32, 8, 128),
-    (1, 129, 4, 4, 80), (1, 300, 8, 1, 256)])
+    (1, 129, 4, 4, 80), (1, 300, 8, 1, 256),
+    # recurrentgemma-2b's G = 10 (three head slices, several chunks per
+    # CTA); granite-8b's heads at Smax 4096 (a cluster of CTAs per kv head)
+    (1, 300, 10, 1, 256), (1, 4096, 32, 8, 128)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_decode_cuda_vs_plain(dev, B, Smax, H, KV, D, dtype):
     rng = np.random.default_rng(1)
@@ -147,6 +150,64 @@ def test_flash_decode_cuda_vs_plain(dev, B, Smax, H, KV, D, dtype):
         _close(lse, lse_want, torch.float32)
 
 
+def _device_kernels(fn):
+    """Device kernels and memsets one call of ``fn`` runs, from
+    torch.profiler: {name: count}.  The profiler now and then records no
+    device event at all (seen on cluster launches); it is asked again, up
+    to three times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        found = {a.key: a.count for a in prof.key_averages()
+                 if a.device_type == DeviceType.CUDA}
+        if found:
+            return found
+    return found
+
+
+@pytest.mark.parametrize("B,pos", [(1, 0), (1, 63), (1, 4095), (8, 4095)])
+def test_flash_decode_cuda_one_kernel_per_call(dev, B, pos):
+    """One op call is one LAUNCHES count and one CUDA kernel at every pos,
+    split over CTAs or not (no second combine kernel, no memset)."""
+    from repro_torch.kernels.flash_decode import plan
+    rng = np.random.default_rng(5)
+    H, KV, D, Smax = 32, 8, 128, 4096
+    q = _t(rng, (B, H, D), torch.bfloat16, dev)
+    kc = _t(rng, (B, Smax, KV, D), torch.bfloat16, dev)
+    vc = _t(rng, (B, Smax, KV, D), torch.bfloat16, dev)
+    n0 = LAUNCHES["flash_decode"]
+    got = ops.flash_decode(q, kc, vc, pos)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_decode"] == n0 + 1
+    _close(got, ref.flash_decode_ref(q, kc, vc, pos), torch.bfloat16)
+    kernels = _device_kernels(lambda: ops.flash_decode(q, kc, vc, pos))
+    assert sum(kernels.values()) == 1, kernels
+    assert plan(B, H, KV, pos + 1, D) == {0: (1, 4, 1), 63: (1, 4, 1)}.get(
+        pos, (4, 1, 8) if B == 1 else (4, 1, 4))
+
+
+def test_flash_decode_cuda_any_group(dev):
+    """G = 10 and G = 13 query heads per kv head (no cap), f32, against
+    the plain version; and at G <= 8 the same call as before."""
+    rng = np.random.default_rng(6)
+    for H, KV in ((10, 1), (26, 2), (8, 1)):
+        q = _t(rng, (2, H, 256), torch.float32, dev)
+        kc = _t(rng, (2, 700, KV, 256), torch.float32, dev)
+        vc = _t(rng, (2, 700, KV, 256), torch.float32, dev)
+        for pos in (0, 450, 699):
+            got, lse = ops.flash_decode(q, kc, vc, pos, return_lse=True)
+            want, lse_want = ref.flash_decode_ref(q, kc, vc, pos,
+                                                  return_lse=True)
+            _close(got, want, torch.float32)
+            _close(lse, lse_want, torch.float32)
+
+
 def _gates(rng, shape, dev):
     li = rng.standard_normal(shape).astype(np.float32)
     lf = -np.logaddexp(0.0, -rng.standard_normal(shape)).astype(np.float32)
@@ -154,7 +215,10 @@ def _gates(rng, shape, dev):
 
 
 @pytest.mark.parametrize("B,S,dr", [(1, 64, 32), (2, 128, 96), (1, 100, 48),
-                                    (1, 2048, 2560)])
+                                    (1, 2048, 2560),
+                                    # one step; odd S over 8 and 17 tiles
+                                    (3, 1, 2560), (3, 2047, 2560),
+                                    (3, 4097, 200)])
 def test_rglru_cuda_vs_plain(dev, B, S, dr):
     rng = np.random.default_rng(2)
     la = -_t(rng, (B, S, dr), torch.float32, dev).abs() * 0.2
@@ -163,6 +227,26 @@ def test_rglru_cuda_vs_plain(dev, B, S, dr):
     got = ops.rglru(la, b)
     torch.cuda.synchronize()
     assert LAUNCHES["rglru"] == n0 + 1
+    torch.testing.assert_close(got, ref.rglru_ref(la, b), atol=1e-5,
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("S", [300, 4097])
+def test_rglru_cuda_slow_decay(dev, S):
+    """log_a ~ -1e-4: the carry crosses every tile almost undamped.  b is
+    scaled by sqrt(1 - a^2), as the model makes it (models/rglru.py), so
+    that h stays O(1): with unscaled N(0, 1) inputs h grows to tens and
+    f32 rounding alone, of the plain sequential recurrence too, exceeds
+    the 1e-5 atol against float64."""
+    rng = np.random.default_rng(8)
+    la = torch.from_numpy((-1e-4 * rng.uniform(0.5, 1.5, (2, S, 2560))
+                           ).astype(np.float32)).to(dev)
+    b = _t(rng, (2, S, 2560), torch.float32, dev) * torch.sqrt(
+        -torch.expm1(2.0 * la))
+    n0 = LAUNCHES["rglru"]
+    got = ops.rglru(la, b)
+    torch.cuda.synchronize()
+    assert LAUNCHES["rglru"] == n0 + 1 and bool(torch.isfinite(got).all())
     torch.testing.assert_close(got, ref.rglru_ref(la, b), atol=1e-5,
                                rtol=1e-4)
 

@@ -16,6 +16,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention_fwd
+from repro.kernels.flash_decode import flash_decode_fwd
 from repro.kernels.mlstm import mlstm_chunkwise_fwd
 from repro.kernels.rglru import rglru_fwd
 from repro.kernels.rmsnorm import rmsnorm_fwd
@@ -203,6 +204,181 @@ def test_flash_decode_lse_combine():
     _close(l1, jl1, "float32")
 
 
+# The CUDA flash-decode kernel's schedule (csrc/flash_decode.cu): its
+# constants and split policy, mirrored here to emulate its order of work.
+FD_NW, FD_T, FD_GMAX, FD_CLUSTER, H100_SMS = 8, 4, 4, 8, 132
+
+
+def _fd_geometry(D):
+    """(lanes of a row group, row groups of a CTA, keys of an iteration)."""
+    lpr = max(2, 1 << (D // 8 - 1).bit_length())
+    nsg = FD_NW * (32 // lpr)
+    return lpr, nsg, nsg * FD_T
+
+
+def _fd_splits(ctas, nchunks, n_sm=H100_SMS):
+    cap = min(-(-2 * n_sm // ctas), nchunks, FD_CLUSTER)
+    n = 1
+    while 2 * n <= cap:
+        n *= 2
+    return n
+
+
+def _fd_plan(B, KV, G, nchunks, n_sm=H100_SMS):
+    """(heads per CTA, slices per kv head, CTAs per slice): slices of 4
+    heads, or of one head where every CTA would walk a single chunk and
+    the card would still be idle."""
+    nslice = -(-G // FD_GMAX)
+    nsplit = _fd_splits(B * KV * nslice, nchunks, n_sm)
+    if G > 1 and nsplit >= nchunks and B * KV * nslice * nsplit < n_sm:
+        return 1, G, _fd_splits(B * KV * G, nchunks, n_sm)
+    return FD_GMAX, nslice, nsplit
+
+
+def _softmax_merge(a, b):
+    """Two (m, l, acc) partials of the same heads, in the log2 domain."""
+    (ma, la, aa), (mb, lb, ab) = a, b
+    mx = torch.maximum(ma, mb)
+    wa, wb = torch.exp2(ma - mx), torch.exp2(mb - mx)
+    return mx, la * wa + lb * wb, aa * wa[..., None] + ab * wb[..., None]
+
+
+def _flash_decode_schedule(q, k, v, pos, *, n_sm=H100_SMS):
+    """Plain-torch emulation of the one-launch CUDA kernel, f32.
+
+    q (B,H,D); k/v (B,Smax,KV,D).  Per (batch, kv head, slice of the
+    group's heads, by the kernel's plan): the keys in chunks of one CTA
+    iteration, the chunks split over ``nsplit`` CTAs; in a CTA, key j of
+    an iteration goes to row group j % NSG, T keys at a time, each row
+    group with its own online softmax in exp2; then the row groups of a
+    warp by the xor butterfly, the warps of the CTA, and the CTAs of the
+    cluster.  Returns (out in q's dtype, lse f32, the plan)."""
+    B, H, D = q.shape
+    Smax, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    n_keys = min(pos + 1, Smax)
+    lpr, nsg, ch = _fd_geometry(D)
+    rpw = 32 // lpr
+    nchunks = -(-n_keys // ch)
+    fd_plan = _fd_plan(B, KV, G, nchunks, n_sm)
+    _, nslice, nsplit = fd_plan
+    out = torch.empty((B, H, D))
+    lse = torch.empty((B, H))
+    for b, kvh, sl in np.ndindex(B, KV, nslice):
+        g0, g1 = sl * G // nslice, (sl + 1) * G // nslice
+        heads = slice(kvh * G + g0, kvh * G + g1)
+        qs = q[b, heads].float() * (D ** -0.5 * np.log2(np.e))
+        kk, vv = k[b, :, kvh].float(), v[b, :, kvh].float()
+        ctas = []
+        for r in range(nsplit):
+            c0, c1 = r * nchunks // nsplit, (r + 1) * nchunks // nsplit
+            kbeg, kend = c0 * ch, min(c1 * ch, n_keys)
+            m = torch.full((nsg, g1 - g0), ref.NEG_INF)
+            l = torch.zeros_like(m)
+            acc = torch.zeros((nsg, g1 - g0, D))
+            for base in range(kbeg, kend, ch):
+                j = base + torch.arange(FD_T)[:, None] * nsg + \
+                    torch.arange(nsg)[None, :]            # (T, NSG)
+                ok = j < kend
+                jc = j.clamp(max=kend - 1)
+                s = torch.einsum("gd,tnd->tng", qs, kk[jc])
+                s = torch.where(ok[..., None], s, ref.NEG_INF)
+                mx = torch.maximum(m, s.amax(0))
+                p = torch.where(ok[..., None], torch.exp2(s - mx), 0.0)
+                alpha = torch.exp2(m - mx)
+                l = l * alpha + p.sum(0)
+                acc = acc * alpha[..., None] + torch.einsum(
+                    "tng,tnd->ngd", p, vv[jc])
+                m = mx
+            part = (m.reshape(FD_NW, rpw, -1), l.reshape(FD_NW, rpw, -1),
+                    acc.reshape(FD_NW, rpw, g1 - g0, D))
+            step = 1
+            while step < rpw:         # the xor butterfly inside a warp
+                idx = torch.arange(rpw) ^ step
+                part = _softmax_merge(part, tuple(x[:, idx] for x in part))
+                step *= 2
+            wm, wl, wacc = (x[:, 0] for x in part)      # per warp
+            M = wm.amax(0)
+            x = torch.exp2(wm - M)
+            ctas.append((M, (wl * x).sum(0), (wacc * x[..., None]).sum(0)))
+        cm = torch.stack([c[0] for c in ctas])
+        M = cm.amax(0)
+        x = torch.exp2(cm - M)
+        L = (torch.stack([c[1] for c in ctas]) * x).sum(0).clamp_min(1e-30)
+        A = (torch.stack([c[2] for c in ctas]) * x[..., None]).sum(0)
+        out[b, heads] = A / L[:, None]
+        lse[b, heads] = (M + torch.log2(L)) * np.log(2.0)
+    return out.to(q.dtype), lse, fd_plan
+
+
+@pytest.mark.parametrize("B,H,KV,Smax,D,pos,want_plan", [
+    # recurrentgemma-2b's heads: pos 0, the last key of the first chunk
+    # and the first of the second (one-head slices: one chunk a CTA), the
+    # last slot (10 chunks on a cluster of 8: slices of 4, 3 and 3 heads)
+    (1, 10, 1, 320, 256, 0, (1, 10, 1)),
+    (1, 10, 1, 320, 256, 31, (1, 10, 1)),
+    (1, 10, 1, 320, 256, 32, (1, 10, 2)),
+    (1, 10, 1, 320, 256, 319, (4, 3, 8)),
+    (2, 8, 2, 256, 128, 63, (1, 4, 1)),     # granite's G=4 at D=128
+    (2, 8, 2, 256, 128, 64, (1, 4, 2)),
+    (1, 4, 1, 1024, 128, 1023, (4, 1, 8)),  # 16 chunks, two per CTA of 8
+    (1, 4, 2, 512, 32, 511, (1, 2, 2)),     # D=32: 256-key chunks, G=2
+])
+def test_flash_decode_schedule_matches_pallas(B, H, KV, Smax, D, pos,
+                                              want_plan):
+    """The one-launch CUDA kernel's order of work (key slices per row
+    group, splits per CTA, the in-launch combine), emulated, against the
+    Pallas kernel in interpret mode at two key blocks and the oracle:
+    2e-5, the LSE in f32."""
+    rng = np.random.default_rng(Smax + pos + H)
+    jq, tq = _pair(rng, (B, H, D), "float32")
+    jk, tk = _pair(rng, (B, Smax, KV, D), "float32")
+    jv, tv = _pair(rng, (B, Smax, KV, D), "float32")
+    got, lse, fd_plan = _flash_decode_schedule(tq, tk, tv, pos)
+    assert fd_plan == want_plan
+    hm = lambda x: jnp.moveaxis(x, 2, 1)            # noqa: E731
+    for block_k in (32, 64):
+        pallas, plse = flash_decode_fwd(jq, hm(jk), hm(jv), jnp.int32(pos),
+                                        block_k=block_k, interpret=True,
+                                        return_lse=True)
+        _close(got, pallas, "float32")
+        _close(lse, plse, "float32")
+    _close(got, jref.flash_decode_ref(jq, jk, jv, pos), "float32")
+
+
+def test_flash_decode_schedule_bf16():
+    """bf16 cache at recurrentgemma-2b's heads, split over 8 CTAs: the
+    emulated kernel against the oracle at 2e-2, its LSE at 2e-5."""
+    rng = np.random.default_rng(7)
+    jq, tq = _pair(rng, (1, 10, 256), "bfloat16")
+    jk, tk = _pair(rng, (1, 320, 1, 256), "bfloat16")
+    jv, tv = _pair(rng, (1, 320, 1, 256), "bfloat16")
+    got, lse, fd_plan = _flash_decode_schedule(tq, tk, tv, 300)
+    assert fd_plan == (4, 3, 8) and got.dtype == torch.bfloat16
+    _close(got, jref.flash_decode_ref(jq, jk, jv, 300), "bfloat16")
+    _, want_lse = ref.flash_decode_ref(tq, tk, tv, 300, return_lse=True)
+    _close(lse, want_lse, "float32")
+
+
+def test_flash_decode_schedule_plan():
+    """The plan: one-head CTAs at granite-8b's admission (pos 63: 32 CTAs
+    of one chunk), slices of 4 heads on 4 CTAs each at B=8 and pos 4095,
+    on the 8 of a full cluster at B=1; never more CTAs than chunks; any G
+    is sliced into groups of <= 4 heads."""
+    _, _, ch = _fd_geometry(128)
+    assert ch == 64
+    assert _fd_plan(1, 8, 4, -(-64 // ch)) == (1, 4, 1)
+    assert _fd_plan(8, 8, 4, -(-4096 // ch)) == (4, 1, 4)
+    assert _fd_plan(1, 8, 4, -(-4096 // ch)) == (4, 1, 8)
+    assert _fd_plan(1, 1, 10, -(-2048 // 32)) == (4, 3, 8)
+    assert _fd_splits(1, 3) == 2
+    assert _fd_geometry(256)[2] == 32 and _fd_geometry(80)[2] == 64
+    for G in (1, 4, 5, 8, 10, 13):
+        ns = -(-G // FD_GMAX)
+        sizes = [(s + 1) * G // ns - s * G // ns for s in range(ns)]
+        assert sum(sizes) == G and max(sizes) <= FD_GMAX
+
+
 def test_flash_attention_head_dim_256_mqa_window():
     """recurrentgemma's attention: D=256, 10 query heads over 1 kv head, a
     window shorter than the sequence (the CUDA kernel's BQ=32 variant)."""
@@ -244,6 +420,93 @@ def test_rglru_matches_pallas(B, S, dr, chunk):
     # the oracle's associative scan, jitted (eager, it takes seconds)
     oracle = jax.jit(jref.rglru_ref)(jnp.asarray(la), jnp.asarray(b))
     np.testing.assert_allclose(got.numpy(), np.asarray(oracle), atol=1e-5,
+                               rtol=1e-4)
+
+
+# The CUDA rglru kernel's tiles (csrc/rglru.cu): 16 warps of 16 steps each.
+RG_NW, RG_L = 16, 16
+
+
+def _rglru_tiles(log_a, b, *, lookback):
+    """Plain-torch emulation of the split-sequence CUDA kernel, f32.
+
+    Each warp scans its 16 steps from h = 0 (cum = running sum of log_a,
+    h_local); a tile composes its 16 warps' aggregates (A, H); the carry
+    into tile ti is composed from the tiles before it: ``lookback=1``
+    reads tile ti-1's inclusive prefix (its predecessor finished first),
+    ``lookback=None`` composes every predecessor's aggregate back to h_0
+    = 0 (no inclusive prefix published yet), the two ends of what the
+    kernel's look-back may meet.  Then h = h_local + exp(cum) * carry."""
+    B, S, dr = log_a.shape
+    tile = RG_NW * RG_L
+    nT = -(-S // tile)
+    pad = nT * tile - S
+    la = torch.nn.functional.pad(log_a, (0, 0, 0, pad))
+    bb = torch.nn.functional.pad(b, (0, 0, 0, pad))
+    la = la.reshape(B, nT, RG_NW, RG_L, dr)
+    bb = bb.reshape(B, nT, RG_NW, RG_L, dr)
+    cum = torch.cumsum(la, 3)
+    hl = torch.empty_like(bb)
+    h = torch.zeros_like(bb[:, :, :, 0])
+    for i in range(RG_L):                     # the warps' local scans
+        h = torch.exp(la[:, :, :, i]) * h + bb[:, :, :, i]
+        hl[:, :, :, i] = h
+    wA, wH = cum[:, :, :, -1], hl[:, :, :, -1]          # (B, nT, NW, dr)
+    A = torch.zeros_like(wA[:, :, 0])
+    H = torch.zeros_like(wH[:, :, 0])
+    for w in range(RG_NW):                    # each tile's aggregate
+        H = torch.exp(wA[:, :, w]) * H + wH[:, :, w]
+        A = A + wA[:, :, w]
+    incl = torch.zeros_like(H)                # h at each tile's end
+    h_in = torch.zeros_like(H)
+    for ti in range(nT):
+        if lookback == 1:
+            h_in[:, ti] = incl[:, ti - 1] if ti else 0.0
+        else:
+            Aacc = torch.zeros_like(A[:, 0])
+            Hacc = torch.zeros_like(H[:, 0])
+            for j in range(ti - 1, -1, -1):
+                Hacc = torch.exp(Aacc) * H[:, j] + Hacc
+                Aacc = Aacc + A[:, j]
+            h_in[:, ti] = Hacc
+        incl[:, ti] = torch.exp(A[:, ti]) * h_in[:, ti] + H[:, ti]
+    carry = torch.empty_like(wA)              # each warp's carry-in
+    c = h_in
+    for w in range(RG_NW):
+        carry[:, :, w] = c
+        c = torch.exp(wA[:, :, w]) * c + wH[:, :, w]
+    out = hl + torch.exp(cum) * carry[:, :, :, None]
+    return out.reshape(B, nT * tile, dr)[:, :S]
+
+
+@pytest.mark.parametrize("B,S,dr,decay", [
+    (2, 1, 40, "model"),          # S = 1: one step of one warp
+    (1, 300, 48, "model"),        # S not a multiple of a warp or a tile
+    (2, 1000, 33, "model"),       # four tiles, dr not a multiple of 32
+    (1, 1100, 32, "slow"),        # log_a ~ -1e-4 over five tiles
+])
+@pytest.mark.parametrize("lookback", [1, None])
+def test_rglru_tiles_match_pallas(B, S, dr, decay, lookback):
+    """The split-sequence CUDA kernel's order of work (chunk-local scans,
+    carry across tiles, fix-up), emulated, against the Pallas kernel in
+    interpret mode at chunks 16 and 32 and the oracle: 1e-5 / 1e-4."""
+    rng = np.random.default_rng(S + dr)
+    if decay == "slow":
+        la = (-1e-4 * rng.uniform(0.5, 1.5, (B, S, dr))).astype(np.float32)
+    else:    # as the model makes it: -8 softplus(1) sigmoid(x)
+        la = (-8.0 * np.log1p(np.e) / (1.0 + np.exp(
+            -rng.standard_normal((B, S, dr))))).astype(np.float32)
+    b = rng.standard_normal((B, S, dr)).astype(np.float32)
+    got = _rglru_tiles(torch.from_numpy(la), torch.from_numpy(b),
+                       lookback=lookback).numpy()
+    assert got.shape == (B, S, dr) and np.isfinite(got).all()
+    for chunk in (16, 32):
+        pallas = rglru_fwd(jnp.asarray(la), jnp.asarray(b), chunk=chunk,
+                           interpret=True)
+        np.testing.assert_allclose(got, np.asarray(pallas), atol=1e-5,
+                                   rtol=1e-4)
+    oracle = jax.jit(jref.rglru_ref)(jnp.asarray(la), jnp.asarray(b))
+    np.testing.assert_allclose(got, np.asarray(oracle), atol=1e-5,
                                rtol=1e-4)
 
 
