@@ -61,6 +61,23 @@ phases (each failure exits non-zero and prints no result line):
             in a recycled slot gives the same stream; for recurrentgemma,
             decode past the window held to the forward in f32 (one group);
             then the same profile of decode steps as the trace phase.
+  train   — the training path, ``"cuda"`` plans, seeded random weights,
+            ``SyntheticLM`` batches: granite-8b at full width cut to 8
+            layers (bf16, f32 AdamW state, B=1, S=4096, remat="dots"):
+            step-0 grads of the "cuda" plan against the "plain" plan per
+            leaf (relative L2 error, every leaf's grad > 0; first at one
+            f32 layer, the FMA route, then bf16), then 4 steps of
+            ``make_train_step`` (loss, step ms, tokens/s, peak memory,
+            flash-attention launches a step: a forward and a recompute per
+            layer) and the time of one layer's flash-attention backward
+            and of one AdamW update; recurrentgemma-2b's first group (rec,
+            rec, attn) at full width, B=1, S=2048, no remat: the same
+            grads gate and two steps (rglru and windowed flash-attention
+            at D=256); xlstm-125m at full width and depth through
+            ``launch/train.py`` (B=8, S=512, a "cuda" plan file, remat
+            "dots"): 6 steps straight, then 3, a restart from the latest
+            checkpoint and 3 more, whose losses must equal the straight
+            run's bit for bit (mlstm 18 launches a step).
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after.  The last two stdout lines before the final one are the
@@ -85,7 +102,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 PHASES = ("build", "kernels", "prefill", "serve", "trace",
-          "prefill-recurrent", "serve-recurrent")
+          "prefill-recurrent", "serve-recurrent", "train")
 RECURRENT = ("recurrentgemma-2b", "xlstm-125m")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): memory rate, bf16 tensor-core
@@ -130,6 +147,20 @@ SERVE_LONG_NEW = 2000
 # rec, rec, attn group at full width: f32 on both sides, so the same 1e-3
 # of the logits' std as the xlstm gate, and the rglru kernel's rtol
 WRAP_F32_ATOL_PER_STD, WRAP_F32_RTOL = 1e-3, 1e-4
+# train: granite-8b at full width cut to 8 layers (full depth with f32
+# AdamW state is 99 GB, over one card), at train_4k's sequence, B=1;
+# TRAIN_STEPS steps, the first of them the warm-up
+TRAIN_GRANITE_LAYERS, TRAIN_GRANITE_S, TRAIN_STEPS = 8, 4096, 4
+TRAIN_REC_S = 2048                     # recurrentgemma-2b's first group
+# xlstm-125m at full width and depth through launch/train.py
+TRAIN_XLSTM_B, TRAIN_XLSTM_S, TRAIN_XLSTM_STEPS = 8, 512, 6
+# per-leaf relative L2 error of the step-0 grads, "cuda" plan against
+# "plain" plan, same weights and batch.  In f32 the plans differ by the
+# kernels' f32 error only (flash-attention 2e-5): 1e-4.  In bf16 the two
+# attention paths round the residual stream differently (the wgmma route
+# rounds p to bf16; one bf16 ulp is 2^-8 relative), and the grads follow:
+# 0.1.  A dropped gradient reads 1.0.
+TRAIN_GRAD_REL_L2 = {"float32": 1e-4, "bfloat16": 0.1}
 
 
 class SmokeFailure(Exception):
@@ -441,10 +472,11 @@ def phase_kernels(torch, state):
         return torch.randn(shape, generator=gen, device=dev,
                            dtype=torch.float32).to(dt)
 
-    # granite-8b's heads; recurrentgemma-2b's (MQA, D=256, its window 2048
-    # at S=2048 and at S=4096 > window); stablelm-3b's (MHA, D=80)
+    # granite-8b's heads (S=4096: its train shape); recurrentgemma-2b's
+    # (MQA, D=256, its window 2048 at S=2048 and at S=4096 > window);
+    # stablelm-3b's (MHA, D=80)
     _fa_checks(torch, rand, rows, failures, H, KV, D,
-               ((1000, 0), (2048, 0), (2048, 512)))
+               ((1000, 0), (2048, 0), (2048, 512), (4096, 0)))
     _fa_checks(torch, rand, rows, failures, 10, 1, 256,
                ((2048, 2048), (4096, 2048)))
     _fa_checks(torch, rand, rows, failures, 32, 32, 80, ((2048, 0),))
@@ -585,6 +617,21 @@ def _recurrent_kernel_checks(torch, rand, rows, failures):
     long_row = dict(kernel="mlstm", S=S, max_abs_err=err, ok=ok)
     long_row.update(_mlstm_timing(torch, q, k, v, li, lf, c))
     rows.append(long_row)
+    del q, k, v, li, lf
+    # xlstm-125m's train shape (B=8, S=512): the parity check and times
+    B, S = TRAIN_XLSTM_B, TRAIN_XLSTM_S
+    q = rand((B, S, H, dh), f32).transpose(1, 2) * dh ** -0.5
+    k = rand((B, S, H, dh), f32).transpose(1, 2)
+    v = rand((B, S, H, dh), f32).transpose(1, 2)
+    li = rand((B, S, H), f32).transpose(1, 2)
+    lf = F.logsigmoid(rand((B, S, H), f32)).transpose(1, 2)
+    err, ok = max_err(torch, mlstm_fwd(q, k, v, li, lf),
+                      R.mlstm_chunkwise_ref(q, k, v, li, lf, chunk=256),
+                      "float32", MLSTM_TOL)
+    report("mlstm", f"({B}, 4, {S}, 384) vs plain chunk 256", err, ok)
+    train_row = dict(kernel="mlstm", B=B, S=S, max_abs_err=err, ok=ok)
+    train_row.update(_mlstm_timing(torch, q, k, v, li, lf, c))
+    rows.append(train_row)
     del q, k, v, li, lf
 
     # rmsnorm at recurrentgemma's norm shape: 2048 rows of d_model 2560
@@ -1156,19 +1203,296 @@ def _check_window_wrap(torch, cfg, params):
                            f"with the forward")
 
 
+# --- train ---------------------------------------------------------------------
+
+def _train_plans(cfg, remat):
+    """"cuda" and "plain" train plans: the reference's train default
+    (hybrid2d[shard_vocab], f32 optimizer state) with ``remat`` and each
+    kernel choice."""
+    from repro_torch.core.combinator import GlobalKnobs
+    from repro_torch.core.plan import uniform_plan
+    from repro_torch.models.context import SegmentClause
+    return {k: uniform_plan(cfg, "hybrid2d", frozenset({"shard_vocab"}),
+                            SegmentClause(remat=remat, kernel=k),
+                            GlobalKnobs(opt_state_dtype="float32"))
+            for k in ("cuda", "plain")}
+
+
+def _train_data(cfg, seq, batch=1):
+    """``SyntheticLM`` at (batch, seq), seed 0, on the card."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    data = SyntheticLM(cfg, ShapeConfig(f"train-{batch}x{seq}", seq, batch,
+                                        "train"), seed=0, device="cuda")
+    return data
+
+
+def _grads_gate(torch, label, cfg, plans, params, batch, bound):
+    """Step-0 grads of the "cuda" plan against the "plain" plan on the same
+    weights and batch: per leaf, the relative L2 error (a dropped gradient
+    reads 1.0) under ``bound``, and every leaf's grad norm > 0."""
+    from repro_torch.models.model import model_specs
+    from repro_torch.models.params import tree_leaves, tree_map_with_path
+    from repro_torch.train.step import make_grads
+
+    out = {}
+    for k in ("cuda", "plain"):
+        t0 = time.perf_counter()
+        loss, _, grads = make_grads(cfg, plans[k], device="cuda")(params,
+                                                                  batch)
+        torch.cuda.synchronize()
+        out[k] = (float(loss), grads, time.perf_counter() - t0)
+    paths = tree_leaves(tree_map_with_path(lambda p, _: "/".join(p),
+                                           model_specs(cfg)))
+    worst, bad, rows = 0.0, [], []
+    for path, g, w in zip(paths, tree_leaves(out["cuda"][1]),
+                          tree_leaves(out["plain"][1])):
+        norm = float(g.float().norm())
+        rel = float((g.float() - w.float()).norm() / w.float().norm())
+        rows.append(f"{path} {rel:.3g}")
+        worst = max(worst, rel)
+        if not (norm > 0 and rel < bound):
+            bad.append(f"{path} (norm {norm:.3g}, rel {rel:.3g})")
+    log(f"train {label} step-0 grads, cuda vs plain plan: loss "
+        f"{out['cuda'][0]:.6g} vs {out['plain'][0]:.6g}; grads "
+        f"{out['cuda'][2] * 1e3:.0f} vs {out['plain'][2] * 1e3:.0f} ms; "
+        f"relative L2 error per leaf (bound {bound}): {', '.join(rows)}; "
+        f"worst {worst:.3g} {'ok' if not bad else 'FAIL'}")
+    del out
+    torch.cuda.empty_cache()
+    if bad:
+        raise SmokeFailure(f"train {label}: cuda-plan grads disagree with "
+                           f"plain or are zero: {bad}")
+
+
+def phase_train(torch, state):
+    """The training path (see the module docstring): granite-8b at full
+    width, 8 layers; recurrentgemma-2b's first group; xlstm-125m through
+    ``launch/train.py`` with a checkpoint restart."""
+    state.get("params", {}).clear()       # the served models' weights
+    torch.cuda.empty_cache()
+    _train_granite(torch, state)
+    _train_recurrentgemma(torch, state)
+    _train_xlstm(torch, state)
+
+
+def _train_granite(torch, state):
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import LAUNCHES, ops, reset_launches
+    from repro_torch.optim.adamw import adamw_update
+    from repro_torch.train.step import (init_train_state, make_grads,
+                                        make_train_step)
+
+    full = get_arch("granite-8b")
+    S = TRAIN_GRANITE_S
+    # one f32 layer at full width (the FMA route): the f32 gate
+    cfg32 = dataclasses.replace(full, num_layers=1, dtype="float32")
+    plans = _train_plans(cfg32, "dots")
+    p32, _ = init_train_state(cfg32, plans["plain"],
+                              torch.Generator().manual_seed(0), "cuda")
+    data = _train_data(cfg32, S)
+    _grads_gate(torch, "granite-8b 1 layer f32", cfg32, plans, p32,
+                data.batch_at(0), TRAIN_GRAD_REL_L2["float32"])
+    del p32
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(full, num_layers=TRAIN_GRANITE_LAYERS)
+    plans = _train_plans(cfg, "dots")
+    t0 = time.perf_counter()
+    params, opt = init_train_state(cfg, plans["cuda"],
+                                   torch.Generator().manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    log(f"train granite-8b {cfg.num_layers} layers: init_train_state "
+        f"{time.perf_counter() - t0:.1f}s, allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB (params and f32 "
+        f"AdamW state)")
+    data = _train_data(cfg, S)
+    _grads_gate(torch, f"granite-8b {cfg.num_layers} layers bf16", cfg,
+                plans, params, data.batch_at(0),
+                TRAIN_GRAD_REL_L2["bfloat16"])
+
+    step = make_train_step(cfg, plans["cuda"], device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, times = [], []
+    for s in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, data.batch_at(s))
+        losses.append(float(m["total_loss"]))      # waits for the step
+        times.append(time.perf_counter() - t0)
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    state.setdefault("launches", {})["train granite-8b"] = launches
+    steady = statistics.median(times[1:])
+    fa_per_step = launches["flash_attention"] / TRAIN_STEPS
+    log(f"train granite-8b {cfg.num_layers} layers B=1 S={S}, cuda plan "
+        f"remat=dots: losses {[round(x, 5) for x in losses]}; step ms "
+        f"{[round(t * 1e3, 1) for t in times]} (steady {steady * 1e3:.1f} "
+        f"ms, {S / steady:.0f} tok/s); peak memory {peak / 2**30:.2f} GiB; "
+        f"launches {launches} ({fa_per_step:g} flash-attention a step)")
+    if not all(math.isfinite(x) for x in losses):
+        raise SmokeFailure(f"train granite-8b: losses {losses}")
+    if fa_per_step != 2 * cfg.num_layers:
+        raise SmokeFailure(f"train granite-8b: {fa_per_step} flash-attention "
+                           f"launches a step, expected {2 * cfg.num_layers} "
+                           f"(a forward and a recompute per layer)")
+
+    # where the step goes: one layer's flash-attention forward and backward
+    # (the backward is autograd of the plain f32 attention), the head's
+    # product with its backward (f32 copies under grad), and one AdamW
+    # update with the peak of its temporaries (CUDA events; launches here
+    # are not the path's)
+    from repro_torch.models.model import _matmul_f32
+    H, KV, D = full.num_heads, full.num_kv_heads, full.head_dim_
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def rand(shape, dt=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda", dtype=dt)
+    q, k, v = (rand((1, S, h, D)).requires_grad_() for h in (H, KV, KV))
+    g = rand((1, S, H, D))
+    with torch.no_grad():
+        fwd = cuda_ms(torch, lambda: ops.flash_attention(q, k, v), reps=5)
+    both = cuda_ms(torch, lambda: torch.autograd.grad(
+        ops.flash_attention(q, k, v), (q, k, v), g), reps=3, warmup=1)
+    x = rand((1, S, full.d_model)).requires_grad_()
+    gl = rand((1, S, full.vocab_size), torch.float32)
+    w = params["head"]["out"]
+    head = cuda_ms(torch, lambda: torch.autograd.grad(
+        _matmul_f32(x, w), (x, w), gl), reps=3, warmup=1)
+    del q, k, v, g, x, gl
+    _, _, grads = make_grads(cfg, plans["cuda"], device="cuda")(
+        params, data.batch_at(TRAIN_STEPS))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    adam = cuda_ms(torch, lambda: adamw_update(grads, opt, params, lr=1e-6),
+                   reps=3, warmup=1)
+    adam_peak = torch.cuda.max_memory_allocated() - base
+    bwd = both - fwd
+    step_ms = steady * 1e3
+    log(f"train granite-8b step breakdown (CUDA events): flash-attention "
+        f"forward {fwd:.3f} ms and backward {bwd:.3f} ms a layer at (1, {S}, "
+        f"{H}/{KV}, {D}): {cfg.num_layers} backward {cfg.num_layers * bwd:.1f} "
+        f"ms = {cfg.num_layers * bwd / step_ms:.3f} of the step; the head's "
+        f"product and its backward {head:.1f} ms = {head / step_ms:.3f}; one "
+        f"AdamW update {adam:.1f} ms = {adam / step_ms:.3f}, its "
+        f"temporaries' peak {adam_peak / 2**20:.0f} MiB")
+    del params, opt, grads
+    torch.cuda.empty_cache()
+
+
+def _train_recurrentgemma(torch, state):
+    """recurrentgemma-2b cut to its first group (rec, rec, attn) at full
+    width, B=1, S=2048, no remat: step-0 grads of the "cuda" plan against
+    the "plain" plan, then two steps of the "cuda" plan."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    full = get_arch("recurrentgemma-2b")
+    cfg = dataclasses.replace(full, num_layers=len(full.block_pattern))
+    plans = _train_plans(cfg, "none")
+    params, opt = init_train_state(cfg, plans["cuda"],
+                                   torch.Generator().manual_seed(0), "cuda")
+    data = _train_data(cfg, TRAIN_REC_S)
+    _grads_gate(torch, f"recurrentgemma-2b {cfg.num_layers} layers bf16",
+                cfg, plans, params, data.batch_at(0),
+                TRAIN_GRAD_REL_L2["bfloat16"])
+    step = make_train_step(cfg, plans["cuda"], device="cuda")
+    reset_launches()
+    losses, times = [], []
+    for s in range(2):
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, data.batch_at(s))
+        losses.append(float(m["total_loss"]))
+        times.append(time.perf_counter() - t0)
+    launches = dict(LAUNCHES)
+    state.setdefault("launches", {})["train recurrentgemma-2b"] = launches
+    want = {"rglru": 2 * 2, "flash_attention": 2 * 1}
+    log(f"train recurrentgemma-2b {cfg.num_layers} layers B=1 "
+        f"S={TRAIN_REC_S}, cuda plan remat=none: losses {losses}, step ms "
+        f"{[round(t * 1e3, 1) for t in times]}, launches {launches}")
+    if {k: n for k, n in launches.items() if n} != want or \
+            not all(math.isfinite(x) for x in losses):
+        raise SmokeFailure(f"train recurrentgemma-2b: launches {launches} "
+                           f"(expected {want}), losses {losses}")
+    del params, opt
+    torch.cuda.empty_cache()
+
+
+def _train_xlstm(torch, state):
+    """xlstm-125m at full width and depth through ``launch/train.py`` with
+    a "cuda" plan file: TRAIN_XLSTM_STEPS straight, then half of them, a
+    restart from the latest checkpoint and the rest.  The resumed losses
+    must equal the uninterrupted run's bit for bit: the data is a function
+    of the step, the checkpoint carries the state exactly, and every op of
+    the step runs in a fixed order (no atomics)."""
+    import tempfile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.train import train
+
+    cfg = get_arch("xlstm-125m")
+    n, half = TRAIN_XLSTM_STEPS, TRAIN_XLSTM_STEPS // 2
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        plan = Path(tmp) / "plan.json"
+        _train_plans(cfg, "dots")["cuda"].save(str(plan))
+        common = ["--arch", cfg.name, "--plan", str(plan), "--batch",
+                  str(TRAIN_XLSTM_B), "--seq", str(TRAIN_XLSTM_S),
+                  "--device", "cuda", "--log-every", "1", "--ckpt-every",
+                  str(n)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        straight = train(common + ["--steps", str(n), "--resume", "never",
+                                   "--ckpt-dir", str(Path(tmp) / "a")])
+        dt = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        state.setdefault("launches", {})["train xlstm-125m"] = launches
+        first = train(common + ["--steps", str(half), "--ckpt-dir",
+                                str(Path(tmp) / "b")])
+        rest = train(common + ["--steps", str(n), "--ckpt-dir",
+                               str(Path(tmp) / "b")])
+    tokens = TRAIN_XLSTM_B * TRAIN_XLSTM_S
+    per_step = launches["mlstm"] / n
+    log(f"train xlstm-125m {cfg.num_layers} layers B={TRAIN_XLSTM_B} "
+        f"S={TRAIN_XLSTM_S} through launch/train.py, cuda plan remat=dots: "
+        f"{n} steps in {dt:.1f}s ({n * tokens / dt:.0f} tok/s with the "
+        f"first step and the checkpoint write), peak memory "
+        f"{peak / 2**30:.2f} GiB, launches {launches} ({per_step:g} mlstm a "
+        f"step); losses {straight}; resumed at step {half}: {rest}")
+    if per_step != 2 * 9:
+        raise SmokeFailure(f"train xlstm-125m: {per_step} mlstm launches a "
+                           f"step, expected 18 (9 layers, forward and "
+                           f"recompute)")
+    if first != straight[:half] or rest != straight[half:]:
+        gap = max(abs(a - b) for a, b in zip(first + rest, straight))
+        raise SmokeFailure(f"train xlstm-125m: the resumed run's losses "
+                           f"differ from the uninterrupted run's (max gap "
+                           f"{gap:.3g})")
+    log(f"train xlstm-125m: the restart from step {half} replays the "
+        f"uninterrupted run's losses bit for bit")
+
+
 # kernel -> (source, TPU kernel it replaces, the paths that launch it)
 KERNELS = {
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:66",
-                        ("prefill granite-8b", "prefill recurrentgemma-2b")),
+                        ("prefill granite-8b", "prefill recurrentgemma-2b",
+                         "train granite-8b", "train recurrentgemma-2b")),
     "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
                      "src/repro/kernels/flash_decode.py:58",
                      ("serve granite-8b",)),
     "rglru": ("src/repro_torch/kernels/csrc/rglru.cu",
               "src/repro/kernels/rglru.py:46",
-              ("prefill recurrentgemma-2b",)),
+              ("prefill recurrentgemma-2b", "train recurrentgemma-2b")),
     "mlstm": ("src/repro_torch/kernels/csrc/mlstm.cu",
-              "src/repro/kernels/mlstm.py:70", ("prefill xlstm-125m",)),
+              "src/repro/kernels/mlstm.py:70",
+              ("prefill xlstm-125m", "train xlstm-125m")),
     # no model calls rmsnorm (nor does the reference's): no path
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:18", ()),
@@ -1221,6 +1545,9 @@ def kernels_line(state):
                                              "cuda_kernels_per_call")})
             entry["at_S_4096"] = {k: pick_row("mlstm", S=4096)[k]
                                   for k in NUMBERS + ("peak_bytes",)}
+            entry["at_train_B8_S512"] = {
+                k: pick_row("mlstm", B=TRAIN_XLSTM_B, S=TRAIN_XLSTM_S)[k]
+                for k in NUMBERS + ("peak_bytes",)}
         if name == "rmsnorm":
             r = pick_row("rmsnorm", dtype="bfloat16")
             entry.update(host_ms=r["host_ms"],
@@ -1251,6 +1578,9 @@ def kernels_line(state):
                 D=256)
             entry["at_head_dim_80"] = pick(
                 "flash_attention", dtype="bfloat16", S=2048, window=0, D=80)
+            entry["at_train_S_4096"] = pick(
+                "flash_attention", dtype="bfloat16", S=4096, window=0,
+                D=128)
         out.append(entry)
     return {"kernels": out}
 
@@ -1289,7 +1619,8 @@ def main(argv=None) -> int:
                "prefill": phase_prefill, "serve": phase_serve,
                "trace": phase_trace,
                "prefill-recurrent": phase_prefill_recurrent,
-               "serve-recurrent": phase_serve_recurrent}
+               "serve-recurrent": phase_serve_recurrent,
+               "train": phase_train}
     try:
         for name in PHASES:
             if name in phases:

@@ -18,12 +18,12 @@ ARCHS = {c.name: c for c in (_granite, _stablelm, _rg, _xlstm)}
 
 #: reference archs the port does not run yet -> the ROADMAP item bringing it
 PENDING = {
-    "qwen3-moe-30b-a3b": "ROADMAP Queue 1 item 9 (MoE archs)",
-    "kimi-k2-1t-a32b": "ROADMAP Queue 1 item 9 (MoE archs)",
-    "chatglm3-6b": "ROADMAP Queue 1 item 12 (remaining dense archs)",
-    "starcoder2-3b": "ROADMAP Queue 1 item 12 (remaining dense archs)",
-    "phi-3-vision-4.2b": "ROADMAP Queue 1 item 12 (remaining dense archs)",
-    "musicgen-large": "ROADMAP Queue 1 item 12 (remaining dense archs)",
+    "qwen3-moe-30b-a3b": "ROADMAP Queue 1 item 3 (MoE archs)",
+    "kimi-k2-1t-a32b": "ROADMAP Queue 1 item 3 (MoE archs)",
+    "chatglm3-6b": "ROADMAP Queue 1 item 6 (remaining dense archs)",
+    "starcoder2-3b": "ROADMAP Queue 1 item 6 (remaining dense archs)",
+    "phi-3-vision-4.2b": "ROADMAP Queue 1 item 6 (remaining dense archs)",
+    "musicgen-large": "ROADMAP Queue 1 item 6 (remaining dense archs)",
 }
 
 

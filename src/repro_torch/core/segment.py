@@ -1,7 +1,7 @@
 """Fragmentor: the segments of a model (embed, one per scan group, head).
 
 The port keeps only what loading and applying a plan needs; signatures and
-clause relevance come with the sweep core (ROADMAP Queue 1 item 7).
+clause relevance come with the sweep core (ROADMAP Queue 1 item 2).
 """
 from __future__ import annotations
 

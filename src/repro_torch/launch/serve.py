@@ -49,7 +49,7 @@ def resolve_plan(cfg, *, plan_path=None, registry_db=None):
     if registry_db:
         raise SystemExit(
             "[serve] --registry-db is not ported yet: the plan registry "
-            "comes with the sweep (ROADMAP Queue 1 item 11); pass --plan")
+            "comes with the sweep (ROADMAP Queue 1 item 5); pass --plan")
     if plan_path:
         return Plan.load(plan_path), f"file:{plan_path}"
     return default_plan(cfg), "default"

@@ -18,7 +18,7 @@ BLOCK_KINDS = ("attn", "rec", "mlstm", "slstm")
 
 #: reference block kinds the port does not run yet -> ROADMAP item
 PENDING_KINDS = {
-    "attn_moe": "ROADMAP Queue 1 item 9 (MoE FFN, models/moe.py)",
+    "attn_moe": "ROADMAP Queue 1 item 3 (MoE FFN, models/moe.py)",
 }
 
 

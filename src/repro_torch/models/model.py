@@ -4,15 +4,19 @@ The layer stack is split into homogeneous groups (``ArchConfig.stack_plan``);
 each group is one ComParX segment with its own :class:`ModelContext`.  A
 group with ``repeats > 1`` keeps its parameters and caches stacked along a
 leading ``layers`` dim, as the reference does, and runs as a Python loop
-over that dim (the reference's ``lax.scan``).  Nothing here is
-rematerialized: the port serves, it does not train yet.
+over that dim (the reference's ``lax.scan``).  With grad enabled, each
+layer's superblock is rematerialized as the segment's clause says
+(:func:`_remat`), as the reference wraps each scan step.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig, ScanGroup
 from repro_torch.device import resolve_device
@@ -59,14 +63,59 @@ def _layers(tree, group: ScanGroup):
     return [layer_slice(tree, i) for i in range(group.repeats)]
 
 
+#: the products ``remat="dots"`` saves: the weight products (``dense``,
+#: the ``wo`` contraction), which reach ``aten.mm`` with no batch dims
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, clause):
+    """The reference's ``_remat`` (``src/repro/models/model.py:58``) as a
+    non-reentrant ``torch.utils.checkpoint``.
+
+    ``full`` saves only the superblock's inputs and reruns it in the
+    backward.  ``dots`` also saves the outputs of ``aten.mm``/``addmm``
+    and recomputes everything else, for the reference's
+    ``checkpoint_dots_with_no_batch_dims``: the weight products are saved,
+    the attention score matrices (``aten.bmm``, batched over heads) are
+    not.  The two sets are not the same: XLA's dot set is decided on its
+    HLO, this one on ATen's ops, and the mLSTM's head projections
+    (``einsum`` with no batch dims, which ATen runs as ``bmm``) are saved
+    by the reference and recomputed here.  A rerun launches the CUDA
+    kernels again.
+    """
+    if clause.remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if clause.remat == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _save_dots))
+    if clause.remat != "none":
+        raise ValueError(f"remat={clause.remat!r}; expected none, dots or "
+                         f"full")
+    return fn
+
+
 def _run_group(x, gparams, group: ScanGroup, cfg, ctx, positions):
     """Forward one group. Returns (x, aux)."""
-    aux = 0.0
-    for layer_params in _layers(gparams, group):
+    def superblock(x, layer_params):
+        aux = 0.0
         for j, kind in enumerate(group.pattern):
             x, a = block_apply(kind, layer_params[f"b{j}"], x, cfg, ctx,
                                positions)
             aux = aux + a
+        return x, aux
+    fn = _remat(superblock, ctx.clause) if torch.is_grad_enabled() \
+        else superblock
+    aux = 0.0
+    for layer_params in _layers(gparams, group):
+        x, a = fn(x, layer_params)
+        aux = aux + a
     return x, aux
 
 
@@ -76,11 +125,18 @@ def embed_tokens(params, tokens, cfg: ArchConfig, ctx: ModelContext):
 
 def _matmul_f32(x, w):
     """x (..., d) @ w (d, V) with f32 output, accumulated in f32 from the
-    stored dtypes (the reference's ``preferred_element_type=f32``)."""
+    stored dtypes (the reference's ``preferred_element_type=f32``).
+
+    On the card without grad, one bf16 tensor-core product with an f32
+    output; ``torch.mm``'s ``out_dtype`` has no derivative, so with grad
+    (and on the CPU) the product runs on f32 copies, whose backward is the
+    reference's: f32 products, cast back to the stored dtypes.
+    """
     if x.dtype == torch.float32 and w.dtype == torch.float32:
         return x @ w
     x2 = x.reshape(-1, x.shape[-1])
-    if x.is_cuda:
+    if x.is_cuda and not (torch.is_grad_enabled()
+                          and (x.requires_grad or w.requires_grad)):
         out = torch.mm(x2, w.to(x.dtype), out_dtype=torch.float32)
     else:
         out = x2.float() @ w.float()
@@ -95,11 +151,11 @@ def lm_head(params, x, cfg: ArchConfig, ctx: ModelContext):
 
 
 def forward(params, batch, cfg: ArchConfig, ctxs):
-    """Prefill forward. batch: {"tokens": (B,S) int}.  (The reference's
-    ``"embeds"`` input feeds the vlm/audio stub frontends, which come with
-    ROADMAP Queue 1 item 12.)
+    """Train/prefill forward. batch: {"tokens": (B,S) int}.  (The
+    reference's ``"embeds"`` input feeds the vlm/audio stub frontends,
+    which come with ROADMAP Queue 1 item 6.)
 
-    Returns (logits (B,S,V) f32, aux_loss scalar tensor).
+    Returns (logits (B,S,V) f32, aux_loss scalar f32 tensor).
     """
     x = embed_tokens(params, batch["tokens"], cfg, _ctx_for(ctxs, SEG_EMBED))
     S = x.shape[1]

@@ -5,7 +5,11 @@ Torch only (no JAX), so the file also runs on a machine without JAX:
 Inputs come from a numpy seed; tolerances are those of
 tests/test_kernels.py: 2e-5 f32 and 2e-2 bf16 for attention, 1e-5 / 1e-4
 for rglru, 5e-4 / 5e-3 for mlstm, 1e-5 f32 and 2e-2 bf16 for rmsnorm.
+Gradients (every op but flash-decode is an autograd Function whose
+backward is autograd of the plain math) are held to the same tolerances.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -16,9 +20,11 @@ from repro_torch.kernels import LAUNCHES, ops, ref, reset_launches
 from repro_torch.kernels.flash_attention import route as fa_route
 from repro_torch.models.context import SegmentClause
 from repro_torch.models.model import model_specs
-from repro_torch.models.params import init_params
+from repro_torch.models.params import init_params, tree_leaves
 from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.serve.step import make_prefill
+from repro_torch.train.step import (init_train_state, make_grads,
+                                    make_train_step)
 
 pytestmark = pytest.mark.cuda
 
@@ -440,3 +446,136 @@ def test_engine_cuda_batched_equals_sequential(dev, name):
     sequential = eng.run(reqs, max_active=1)
     for r in reqs:
         assert batched[r.rid].tokens == sequential[r.rid].tokens, r.rid
+
+
+# --- gradients -------------------------------------------------------------
+
+def _grad_case(name, rng, dev):
+    """(the op on CUDA inputs, its plain version, inputs, the kernel it
+    launches, (atol, rtol))."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    if name.startswith("flash_attention"):
+        dt, D, H, KV, window, causal = {
+            "flash_attention_fma": (f32, 128, 8, 2, 0, True),
+            "flash_attention_wgmma": (bf16, 128, 8, 2, 0, True),
+            "flash_attention_wgmma_d256_window": (bf16, 256, 10, 1, 48,
+                                                  True),
+            "flash_attention_fma_non_causal": (f32, 128, 8, 2, 0, False),
+            "flash_attention_wgmma_non_causal_window": (bf16, 128, 8, 2, 48,
+                                                        False),
+        }[name]
+        xs = [_t(rng, (1, 300, h, D), dt, dev) for h in (H, KV, KV)]
+
+        def plain(q, k, v):
+            return ref.flash_attention_ref(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                causal=causal, window=window).transpose(1, 2)
+        return (lambda *a: ops.flash_attention(*a, causal=causal,
+                                               window=window), plain,
+                xs, "flash_attention", (TOL[dt], TOL[dt]))
+    if name == "rglru":
+        xs = [-_t(rng, (2, 300, 96), f32, dev).abs() * 0.2,
+              _t(rng, (2, 300, 96), f32, dev)]
+        return ops.rglru, ref.rglru_ref, xs, "rglru", (1e-4, 1e-3)
+    if name == "mlstm":
+        B, H, S, dh = 1, 2, 200, 64
+        xs = [_t(rng, (B, H, S, dh), f32, dev) * dh ** -0.5,
+              _t(rng, (B, H, S, dh), f32, dev),
+              _t(rng, (B, H, S, dh), f32, dev), *_gates(rng, (B, H, S), dev)]
+        return (lambda *a: ops.mlstm_chunkwise(*a, chunk=64),
+                lambda *a: ref.mlstm_chunkwise_ref(*a, chunk=64), xs,
+                "mlstm", (5e-4, 5e-3))
+    dt = {"rmsnorm_f32": f32, "rmsnorm_bf16": bf16}[name]
+    xs = [_t(rng, (4, 32, 2560), dt, dev), _t(rng, (2560,), dt, dev)]
+    return (ops.rmsnorm, ref.rmsnorm_ref, xs, "rmsnorm",
+            (1e-5, 1e-5) if dt == f32 else (2e-2, 2e-2))
+
+
+@pytest.mark.parametrize("name", [
+    "flash_attention_fma", "flash_attention_wgmma",
+    "flash_attention_wgmma_d256_window", "flash_attention_fma_non_causal",
+    "flash_attention_wgmma_non_causal_window", "rglru", "mlstm",
+    "rmsnorm_f32", "rmsnorm_bf16"])
+def test_op_grads_cuda_vs_plain_autograd(dev, name):
+    """The kernel's Function against autograd of its plain version on the
+    same card inputs: the forward launches the kernel once and the
+    backward launches nothing."""
+    rng = np.random.default_rng(9)
+    op, plain, xs, kernel, (atol, rtol) = _grad_case(name, rng, dev)
+    xs = [x.requires_grad_() for x in xs]
+    n0 = LAUNCHES[kernel]
+    out = op(*xs)
+    ct = _t(rng, tuple(out.shape), out.dtype, dev)
+    got = torch.autograd.grad(out, xs, ct)
+    torch.cuda.synchronize()
+    assert LAUNCHES[kernel] == n0 + 1
+    want = torch.autograd.grad(plain(*xs), xs, ct)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g.float(), w.float(), atol=atol,
+                                   rtol=rtol, msg=lambda m: f"input {i}: {m}")
+
+
+def test_flash_decode_cuda_raises_under_grad(dev):
+    rng = np.random.default_rng(0)
+    q = _t(rng, (1, 8, 128), torch.bfloat16, dev).requires_grad_()
+    kc = _t(rng, (1, 64, 2, 128), torch.bfloat16, dev)
+    n0 = LAUNCHES["flash_decode"]
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.flash_decode(q, kc, kc, 10)
+    assert LAUNCHES["flash_decode"] == n0
+
+
+def _rel_l2(got, want):
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+# per-leaf relative L2 error of the step-0 grads, "cuda" plan against
+# "plain" plan on the same weights and batch: in f32 the plans differ by
+# the kernels' f32 error only; in bf16 the two attention paths round the
+# residual stream differently (one bf16 ulp is 2^-8 relative).  A dropped
+# gradient reads 1.0.
+GRAD_REL_L2 = {"float32": 1e-4, "bfloat16": 0.1}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_grads_cuda_plan_match_plain_plan(dev, dtype):
+    """granite-8b at full width cut to 2 layers, B=1, S=256."""
+    cfg = dataclasses.replace(get_arch("granite-8b"), num_layers=2,
+                              dtype=dtype)
+    params, _ = init_train_state(cfg, _plan(cfg, "plain"),
+                                 torch.Generator().manual_seed(0), dev)
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (1, 257))).to(dev)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    reset_launches()
+    _, _, cuda = make_grads(cfg, _plan(cfg, "cuda"), device=dev)(params,
+                                                                 batch)
+    assert LAUNCHES["flash_attention"] == cfg.num_layers
+    _, _, plain = make_grads(cfg, _plan(cfg, "plain"), device=dev)(params,
+                                                                   batch)
+    for g, w in zip(tree_leaves(cuda), tree_leaves(plain)):
+        assert float(g.float().norm()) > 0
+        assert _rel_l2(g, w) < GRAD_REL_L2[dtype]
+
+
+@pytest.mark.parametrize("remat,per_step", [("none", 1), ("dots", 2),
+                                            ("full", 2)])
+def test_train_step_cuda_launches_under_remat(dev, remat, per_step):
+    """A rematerialized layer reruns its forward in the backward, and with
+    it the kernel: flash-attention launches per_step x layers a step."""
+    cfg = get_arch("granite-8b").smoke()
+    plan = uniform_plan(cfg, "tensor_par", set(),
+                        SegmentClause(kernel="cuda", remat=remat))
+    params, opt = init_train_state(cfg, plan,
+                                   torch.Generator().manual_seed(0), dev)
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (2, 33))).to(dev)
+    step = make_train_step(cfg, plan, device=dev)
+    reset_launches()
+    for _ in range(2):
+        params, opt, m = step(params, opt, {"tokens": toks[:, :-1],
+                                            "targets": toks[:, 1:]})
+    assert bool(torch.isfinite(m["total_loss"]))
+    assert LAUNCHES["flash_attention"] == 2 * per_step * cfg.num_layers
+    assert all(bool(torch.isfinite(t).all()) for t in tree_leaves(params))

@@ -57,13 +57,17 @@ def test_chip_smoke_fails_without_card(probe):
 
 
 def _entry_points():
-    from repro_torch.configs import get_arch
+    from repro_torch.configs import get_arch, get_shape
+    from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.launch.serve import default_plan, serve
+    from repro_torch.launch.train import train
     from repro_torch.models.model import init_cache, model_specs
     from repro_torch.models.params import init_params
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.step import (make_decode_step, make_prefill,
                                         make_prefill_cache)
+    from repro_torch.train.step import (init_train_state, make_grads,
+                                        make_train_step)
     cfg = get_arch("granite-8b").smoke()
     plan = default_plan(cfg)
     return {
@@ -75,6 +79,13 @@ def _entry_points():
                                            torch.Generator()),
         "init_cache": lambda: init_cache(cfg, 1, 8),
         "launch.serve": lambda: serve(["--arch", "granite-8b", "--smoke"]),
+        "make_train_step": lambda: make_train_step(cfg, plan),
+        "make_grads": lambda: make_grads(cfg, plan),
+        "init_train_state": lambda: init_train_state(cfg, plan,
+                                                     torch.Generator()),
+        "SyntheticLM": lambda: SyntheticLM(cfg,
+                                           get_shape("train_4k").smoke()),
+        "launch.train": lambda: train(["--arch", "granite-8b", "--smoke"]),
     }
 
 

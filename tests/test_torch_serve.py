@@ -180,7 +180,7 @@ def test_arch_registry_names_pending_roadmap_items():
     assert get_arch("stablelm-3b-smoke").norm == "layernorm"
     assert get_arch("xlstm-125m").block_kinds().count("mlstm") == 9
     assert get_arch("recurrentgemma-2b-smoke").head_dim == 16
-    with pytest.raises(KeyError, match="ROADMAP Queue 1 item 9"):
+    with pytest.raises(KeyError, match="ROADMAP Queue 1 item 3"):
         get_arch("qwen3-moe-30b-a3b")
     with pytest.raises(KeyError, match="unknown arch"):
         get_arch("nope")
