@@ -78,6 +78,25 @@ phases (each failure exits non-zero and prints no result line):
             "dots"): 6 steps straight, then 3, a restart from the latest
             checkpoint and 3 more, whose losses must equal the straight
             run's bit for bit (mlstm 18 launches a step).
+  sweep   — the ComPar sweep (``core/tuner.py``), three sweeps, one JSON
+            line each (``{"sweep": "A" | "B" | "C", ...}``).  A: the
+            quickstart's path in-process (``repro_torch.examples.
+            quickstart.main``): granite-8b at full width cut to 8 layers,
+            B=1, S=4096, providers tensor_par and fsdp (at most one flag),
+            remat {none, dots} x kernel {plain, cuda}, wall-clock (CUDA-event
+            medians), then 3 train steps with the fused plan.  Gates: no
+            row left pending; the plan is ``fuse`` of the DB's rows and its
+            predicted total the sum of the chosen rows' scores; a second
+            tuner in Continue mode scores nothing and fuses the same plan;
+            allocated memory after the sweep and the steps within 64 MiB of
+            before; finite losses and flash-attention launches a step as
+            the plan's stack clause says (16 under cuda/dots, 8 under
+            cuda/none, 0 under plain).  B: recurrentgemma-2b at full width
+            and depth, prefill B=1, S=2048, kernel {plain, cuda}, remat none:
+            each cuda stack job launches rglru and flash-attention (D=256)
+            once a layer a call, each plain job neither.  C: the dry run
+            (fake tensors, H100 constants) over A's space: predicted terms
+            beside A's medians, and ``audit_soundness`` clean.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after.  The last two stdout lines before the final one are the
@@ -89,6 +108,7 @@ Usage:  python3 chip_smoke.py [--phases build,kernels,...]
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -102,7 +122,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 PHASES = ("build", "kernels", "prefill", "serve", "trace",
-          "prefill-recurrent", "serve-recurrent", "train")
+          "prefill-recurrent", "serve-recurrent", "train", "sweep")
 RECURRENT = ("recurrentgemma-2b", "xlstm-125m")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): memory rate, bf16 tensor-core
@@ -161,6 +181,10 @@ TRAIN_XLSTM_B, TRAIN_XLSTM_S, TRAIN_XLSTM_STEPS = 8, 512, 6
 # rounds p to bf16; one bf16 ulp is 2^-8 relative), and the grads follow:
 # 0.1.  A dropped gradient reads 1.0.
 TRAIN_GRAD_REL_L2 = {"float32": 1e-4, "bfloat16": 0.1}
+# sweep: the allocated memory a sweep may leave behind, and
+# recurrentgemma-2b's prefill sweep (B=1, its prefill-recurrent sequence)
+SWEEP_MEMORY_SLACK = 64 * 2**20
+SWEEP_REC_S = 2048
 
 
 class SmokeFailure(Exception):
@@ -327,6 +351,7 @@ def _fa_checks(torch, rand, rows, failures, H, KV, D, cases):
 
     from repro_torch.kernels import ref as R
     from repro_torch.kernels.flash_attention import flash_attention_fwd, route
+    from repro_torch.kernels.ops import attention_pairs
 
     dev = torch.device("cuda")
     B = 1
@@ -360,7 +385,7 @@ def _fa_checks(torch, rand, rows, failures, H, KV, D, cases):
             lib_dev, _ = device_ms(torch, sdpa)
             dev_ms, _ = device_ms(torch, lambda: flash_attention_fwd(
                 q, k, v, causal=True, window=window))
-            pairs = int(live.sum())        # (q, k) pairs the mask keeps
+            pairs = attention_pairs(S, S, True, window)
             item = q.element_size()
             nbytes = (2 * B * S * H * D + 2 * B * S * KV * D) * item
             flops = 4 * B * H * D * pairs
@@ -673,16 +698,10 @@ def _mlstm_timing(torch, q, k, v, li, lf, c):
     the mlstm kernels at q's shape (kernel chunk ``c``)."""
     from repro_torch.kernels import ref as R
     from repro_torch.kernels.mlstm import mlstm_fwd
+    from repro_torch.kernels.ops import mlstm_flops
 
     B, H, S, dh = q.shape
-    flops = 0
-    for t0 in range(0, S, c):       # the kernels' chunks of this S
-        cl = min(c, S - t0)
-        flops += 4 * cl * cl * dh   # q k^T and P v
-        if t0:                      # q C: the first chunk has no state
-            flops += 2 * cl * dh * dh
-        if t0 + c < S:              # no state update after the last chunk
-            flops += 2 * cl * dh * dh
+    flops = mlstm_flops(S, dh, c)
     nbytes = 4 * (4 * B * H * S * dh + 2 * B * H * S)
     bms, by = bound_ms(nbytes, MLSTM_SPLIT_PASSES * B * H * flops, "tf32")
     bms_f32, _ = bound_ms(nbytes, B * H * flops, "float32")
@@ -1478,18 +1497,311 @@ def _train_xlstm(torch, state):
         f"uninterrupted run's losses bit for bit")
 
 
+# --- sweep ---------------------------------------------------------------------
+
+def phase_sweep(torch, state):
+    """The ComPar sweep on the card (see the module docstring): A, the
+    quickstart's path; B, recurrentgemma-2b's prefill; C, the dry run."""
+    state.get("params", {}).clear()
+    torch.cuda.empty_cache()
+    # cuBLAS keeps a workspace per handle in the caching allocator from
+    # its first product on: take it before gate (d) reads the baseline
+    for dt in (torch.bfloat16, torch.float32):
+        x = torch.ones(64, 64, device="cuda", dtype=dt, requires_grad=True)
+        torch.autograd.grad((x @ x).sum(), x)
+    del x
+    torch.cuda.synchronize()
+    a = _sweep_quickstart(torch, state)
+    _sweep_recurrentgemma(torch, state)
+    _sweep_dry_run(torch, state, a)
+
+
+def _programs(tuner):
+    """One row per unique program (segment, clause) of a sweep: its
+    status, median ms, peak GiB and error."""
+    out = {}
+    for r in tuner.db.results(tuner.project):
+        cl = r["combo"].clause
+        key = f"{r['segment']}/{cl.remat}/{cl.kernel}"
+        if key in out:
+            continue
+        d = (r["cost"] or {}).get("detail", {})
+        out[key] = {"status": r["status"], "error": r["error"],
+                    "median_ms": d["wall_s"] * 1e3 if "wall_s" in d else None,
+                    "peak_gib": d["peak_bytes"] / 2**30
+                    if "peak_bytes" in d else None,
+                    "total_s": (r["cost"] or {}).get("total_s")}
+    return out
+
+
+@contextlib.contextmanager
+def _launches_per_job():
+    """Each wall-clock job's kernel launches (its warm-up and timed calls),
+    keyed ``segment/remat/kernel``: every job of a sweep run inside."""
+    from repro_torch.core.executor import WallClockExecutor
+    from repro_torch.kernels import LAUNCHES
+
+    per_job = {}
+    score = WallClockExecutor.score_segment
+
+    def counted(self, cfg, shape, seg, combo, *a, **kw):
+        n0 = dict(LAUNCHES)
+        try:
+            return score(self, cfg, shape, seg, combo, *a, **kw)
+        finally:
+            cl = combo.clause
+            per_job[f"{seg.name}/{cl.remat}/{cl.kernel}"] = {
+                k: LAUNCHES[k] - n0[k] for k in LAUNCHES}
+    WallClockExecutor.score_segment = counted
+    try:
+        yield per_job
+    finally:
+        WallClockExecutor.score_segment = score
+
+
+def _job_launch_gates(cfg, tuner, space, per_job):
+    """Each stack group was scored under every (remat, kernel) of
+    ``space``, and each job's launches match its clause: every kernel 0
+    under ``plain``; under ``cuda``, each attention and recurrent layer
+    launches flash-attention and rglru once per call (twice under remat,
+    whose backward reruns the forward), and nothing else."""
+    calls = 1 + tuner.executor.repeats         # the warm-up and the timed
+    groups = cfg.stack_plan()
+    fail = [f"g{g}/{r}/{k}: no job scored" for g in range(len(groups))
+            for r in space["remat"] for k in space["kernel"]
+            if f"g{g}/{r}/{k}" not in per_job]
+    for key, got in per_job.items():
+        seg, remat, kernel = key.split("/")
+        want = dict.fromkeys(got, 0)
+        if kernel == "cuda" and seg.startswith("g"):
+            group = groups[int(seg[1:])]
+            per_call = (2 if remat in ("dots", "full") else 1) * group.repeats
+            want["flash_attention"] = group.pattern.count("attn") * \
+                per_call * calls
+            want["rglru"] = group.pattern.count("rec") * per_call * calls
+        if got != want:
+            fail.append(f"{key}: launches {got}, expected {want}")
+    return fail
+
+
+def _sweep_quickstart(torch, state):
+    import tempfile
+
+    from repro_torch.core.fusion import fuse
+    from repro_torch.core.cost_model import CostTerms
+    from repro_torch.core.tuner import ComParTuner
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sweep_") as tmp, \
+            _launches_per_job() as per_job:
+        reset_launches()
+        t0 = time.perf_counter()
+        out = quickstart.main(["--device", "cuda", "--layers",
+                               str(TRAIN_GRANITE_LAYERS), "--steps", "3",
+                               "--plan-out", str(Path(tmp) / "plan.json")])
+        wall = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    state.setdefault("launches", {})["sweep granite-8b"] = launches
+    tuner, plan, rep = out["tuner"], out["plan"], out["report"]
+    cfg, shape = out["cfg"], out["shape"]
+    rows = tuner.db.results(tuner.project)
+    programs = _programs(tuner)
+    failures = {k: p["error"] for k, p in programs.items()
+                if p["status"] != "done"}
+    # every job scored, and each ran the kernels its clause names: a cuda
+    # job that failed on the card must not leave the plan to plain rows
+    fail = _job_launch_gates(cfg, tuner, out["space"], per_job)
+    if rep.n_failed or failures:
+        fail.append(f"{rep.n_failed} failed rows: {failures}")
+    # (a) every registered row settled
+    pending = tuner.db.pending(tuner.project)
+    if pending:
+        fail.append(f"{len(pending)} rows left pending")
+    # (b) the plan is fuse() of the DB's rows; its total the chosen rows'
+    results = {}
+    for r in rows:
+        if r["status"] == "done":
+            results.setdefault(r["segment"], []).append(
+                (r["combo"], CostTerms.from_dict(r["cost"])))
+    fused = fuse(cfg, shape, None, results, plan.knobs)
+    if fused.segments != plan.segments:
+        fail.append(f"plan {plan.describe()} != fuse of the DB's rows "
+                    f"{fused.describe()}")
+    chosen = sum(min(t.total_s for c, t in results[s] if c == plan.segments[s])
+                 for s in plan.segments)
+    if chosen != plan.meta["predicted_total_s"]:
+        fail.append(f"predicted_total_s {plan.meta['predicted_total_s']} != "
+                    f"sum of the chosen rows {chosen}")
+    # (c) Continue mode on the same DB scores nothing, fuses the same plan
+    again = ComParTuner(cfg, shape, device="cuda", db=tuner.db,
+                        project=tuner.project, mode="continue",
+                        executor="wallclock")
+    plan2, rep2 = again.sweep(providers=quickstart.PROVIDERS,
+                              clause_space=out["space"], max_flags=1,
+                              backend="sequential")
+    same = json.dumps(plan2.to_json(), sort_keys=True) == \
+        json.dumps(plan.to_json(), sort_keys=True)
+    if rep2.n_scored or not same:
+        fail.append(f"continue mode scored {rep2.n_scored} programs, same "
+                    f"plan: {same}")
+    # (d) the sweep and the steps hand their memory back
+    if after - before > SWEEP_MEMORY_SLACK:
+        fail.append(f"allocated {after / 2**20:.1f} MiB after, "
+                    f"{before / 2**20:.1f} before")
+    # (e) finite losses; flash-attention launches as the stack clause says
+    g0 = plan.segments["g0"].clause
+    fa_want = 0 if g0.kernel == "plain" else \
+        (2 if g0.remat in ("dots", "full") else 1) * cfg.num_layers
+    fa_got = out["launches_per_step"]["flash_attention"]
+    if not all(math.isfinite(x) for x in out["losses"]) or fa_got != fa_want:
+        fail.append(f"losses {out['losses']}, flash-attention {fa_got} a "
+                    f"step, expected {fa_want}")
+    line = {"sweep": "A", "arch": cfg.name, "layers": cfg.num_layers,
+            "shape": [shape.global_batch, shape.seq_len, shape.kind],
+            "n_combinations": rep.n_combinations,
+            "unique_programs": rep.n_scored, "n_done": rep.n_done,
+            "n_failed": rep.n_failed, "failures": failures,
+            "programs": programs, "launches_per_job": per_job,
+            "plan": {s: c.label() for s, c in sorted(plan.segments.items())},
+            "predicted_total_s": plan.meta["predicted_total_s"],
+            "baselines_s": out["baselines"], "sweep_s": out["sweep_s"],
+            "train_step_ms": [t * 1e3 for t in out["step_s"]],
+            "train_losses": out["losses"],
+            "flash_attention_per_step": fa_got,
+            "train_peak_gib": out["peak_bytes"] / 2**30, "phase_s": wall,
+            "memory_before_mib": before / 2**20,
+            "memory_after_mib": after / 2**20,
+            "continue_scored": rep2.n_scored, "launches": launches,
+            "gates_failed": fail}
+    print(json.dumps(line), flush=True)
+    log(f"sweep A granite-8b {cfg.num_layers} layers: {rep.summary()}; "
+        f"plan {line['plan']}; sweep {out['sweep_s']:.1f}s; steps "
+        f"{[round(t, 1) for t in line['train_step_ms']]} ms; "
+        f"{'ok' if not fail else 'FAIL'}")
+    if fail:
+        raise SmokeFailure(f"sweep A: {fail}")
+    return {"programs": programs, "cfg": cfg, "shape": shape,
+            "space": out["space"], "plan": plan}
+
+
+def _sweep_recurrentgemma(torch, state):
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.tuner import ComParTuner
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    cfg = get_arch("recurrentgemma-2b")
+    shape = ShapeConfig(f"prefill-1x{SWEEP_REC_S}", SWEEP_REC_S, 1,
+                        "prefill")
+    tuner = ComParTuner(cfg, shape, device="cuda", executor="wallclock")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    reset_launches()
+    t0 = time.perf_counter()
+    space = {"remat": ("none",), "kernel": ("plain", "cuda")}
+    with _launches_per_job() as per_job:
+        plan, rep = tuner.sweep(providers=["tensor_par", "fsdp"],
+                                clause_space=space, max_flags=1,
+                                backend="sequential")
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    state.setdefault("launches", {})["sweep recurrentgemma-2b"] = launches
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    programs = _programs(tuner)
+    fail = _job_launch_gates(cfg, tuner, space, per_job)
+    if rep.n_failed or after - before > SWEEP_MEMORY_SLACK:
+        fail.append(f"{rep.n_failed} failed rows; allocated "
+                    f"{after / 2**20:.1f} MiB after, {before / 2**20:.1f} "
+                    f"before")
+    segs = {}
+    for key, p in programs.items():
+        seg, _, kernel = key.split("/")
+        segs.setdefault(seg, {})[f"{kernel}_ms"] = p["median_ms"]
+    for seg, c in plan.segments.items():
+        segs[seg]["chosen"] = c.clause.kernel
+    line = {"sweep": "B", "arch": cfg.name, "layers": cfg.num_layers,
+            "shape": [shape.global_batch, shape.seq_len, shape.kind],
+            "n_combinations": rep.n_combinations,
+            "unique_programs": rep.n_scored, "n_done": rep.n_done,
+            "n_failed": rep.n_failed, "segments": segs,
+            "launches_per_job": per_job,
+            "predicted_total_s": plan.meta["predicted_total_s"],
+            "sweep_s": wall, "gates_failed": fail}
+    print(json.dumps(line), flush=True)
+    log(f"sweep B recurrentgemma-2b prefill: {rep.summary()}; segments "
+        f"{segs}; {'ok' if not fail else 'FAIL'}")
+    if fail:
+        raise SmokeFailure(f"sweep B: {fail}")
+
+
+def _sweep_dry_run(torch, state, a):
+    from repro_torch.core.tuner import ComParTuner
+    from repro_torch.examples import quickstart
+
+    cfg, shape = a["cfg"], a["shape"]
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    tuner = ComParTuner(cfg, shape, device="cuda", executor="dryrun")
+    t0 = time.perf_counter()
+    plan, rep = tuner.sweep(providers=quickstart.PROVIDERS,
+                            clause_space=a["space"], max_flags=1)
+    wall = time.perf_counter() - t0
+    fail = []
+    try:
+        tight = tuner.audit_soundness()
+    except AssertionError as e:
+        tight = None
+        fail.append(str(e))
+    if torch.cuda.memory_allocated() != before:
+        fail.append("the dry run allocated device memory")
+    jobs = {}
+    for r in tuner.db.results(tuner.project):
+        cl = r["combo"].clause
+        key = f"{r['segment']}/{cl.remat}/{cl.kernel}"
+        if key in jobs:
+            continue
+        c = r["cost"]
+        measured = a["programs"].get(key, {}).get("median_ms")
+        jobs[key] = {"predicted_ms": c["total_s"] * 1e3,
+                     "compute_ms": c["compute_s"] * 1e3,
+                     "memory_ms": c["memory_s"] * 1e3, "flops": c["flops"],
+                     "bytes": c["bytes_accessed"], "measured_ms": measured,
+                     "predicted_over_measured": c["total_s"] * 1e3 / measured
+                     if measured else None}
+    line = {"sweep": "C", "arch": cfg.name, "hw": tuner.executor.cache_tag,
+            "n_combinations": rep.n_combinations,
+            "unique_programs": rep.n_scored, "jobs": jobs,
+            "plan": {s: c.label() for s, c in sorted(plan.segments.items())},
+            "plan_a": {s: c.label() for s, c in
+                       sorted(a["plan"].segments.items())},
+            "bound_tightness": tight, "sweep_s": wall,
+            "gates_failed": fail}
+    print(json.dumps(line), flush=True)
+    log(f"sweep C dry run: {rep.summary()}; {'ok' if not fail else 'FAIL'}")
+    if fail:
+        raise SmokeFailure(f"sweep C: {fail}")
+
+
 # kernel -> (source, TPU kernel it replaces, the paths that launch it)
 KERNELS = {
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:66",
                         ("prefill granite-8b", "prefill recurrentgemma-2b",
-                         "train granite-8b", "train recurrentgemma-2b")),
+                         "train granite-8b", "train recurrentgemma-2b",
+                         "sweep granite-8b", "sweep recurrentgemma-2b")),
     "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
                      "src/repro/kernels/flash_decode.py:58",
                      ("serve granite-8b",)),
     "rglru": ("src/repro_torch/kernels/csrc/rglru.cu",
               "src/repro/kernels/rglru.py:46",
-              ("prefill recurrentgemma-2b", "train recurrentgemma-2b")),
+              ("prefill recurrentgemma-2b", "train recurrentgemma-2b",
+               "sweep recurrentgemma-2b")),
     "mlstm": ("src/repro_torch/kernels/csrc/mlstm.cu",
               "src/repro/kernels/mlstm.py:70",
               ("prefill xlstm-125m", "train xlstm-125m")),
@@ -1620,7 +1932,7 @@ def main(argv=None) -> int:
                "trace": phase_trace,
                "prefill-recurrent": phase_prefill_recurrent,
                "serve-recurrent": phase_serve_recurrent,
-               "train": phase_train}
+               "train": phase_train, "sweep": phase_sweep}
     try:
         for name in PHASES:
             if name in phases:

@@ -1,0 +1,397 @@
+"""Executors: score one combination on one segment, as the reference's
+``src/repro/core/executor.py``.
+
+* :class:`WallClockExecutor` — ComPar's empirical loop: run the segment's
+  program and take the median time.  On a CUDA device each call is timed
+  by a pair of CUDA events on the current stream; on the CPU by
+  ``time.perf_counter``.
+* :class:`DryRunExecutor` — no device at all: the program runs on fake
+  tensors (``FakeTensorMode``) while :class:`OpCounter` counts its flops
+  (``FlopCounterMode``) and the bytes each operator reads and writes, the
+  hand-written kernels' ops among them (``kernels/ops.py``).  The
+  roofline terms divide those by an H100's peak rates.  It stands where
+  the reference reads flops and bytes from XLA's compiled HLO.
+
+A per-combination ``deadline`` makes a straggler a recorded failure.
+"""
+from __future__ import annotations
+
+import gc
+import math
+import platform
+import signal
+import statistics
+import threading
+import time
+from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor, wait
+from contextlib import contextmanager
+from dataclasses import dataclass
+from typing import Dict, Iterator, Optional, Sequence
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves as pytree_leaves
+
+from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.core.combinator import (Combination, GlobalKnobs,
+                                         require_meshless)
+from repro_torch.core.cost_model import (H100, CostTerms, Hardware,
+                                         combo_lower_bound,
+                                         terms_from_analysis)
+from repro_torch.core.segment import Segment
+from repro_torch.core.timer import segment_program
+from repro_torch.device import resolve_device
+
+
+class CombinationFailed(Exception):
+    """A combination could not be scored.
+
+    ``transient`` marks outcomes that depend on load or the time budget
+    (deadline overruns): retryable, and never cached.  Deterministic
+    failures (an op that raises, a program that does not fit the card)
+    are cached like scores.
+    """
+
+    def __init__(self, msg: str = "", *, transient: bool = False):
+        super().__init__(msg)
+        self.transient = transient
+
+
+@contextmanager
+def deadline(seconds: Optional[float]):
+    """Straggler guard.
+
+    On the main thread: SIGALRM, which interrupts the job.  Off the main
+    thread ``signal`` is unavailable, so the block runs to completion and
+    is then failed if it overran its thread's CPU time (a soft deadline).
+    """
+    if not seconds:
+        yield
+        return
+
+    if threading.current_thread() is not threading.main_thread():
+        t0 = time.thread_time()
+        yield
+        if time.thread_time() - t0 > seconds:
+            raise CombinationFailed(f"deadline {seconds}s exceeded (soft)",
+                                    transient=True)
+        return
+
+    def handler(signum, frame):
+        raise CombinationFailed(f"deadline {seconds}s exceeded",
+                                transient=True)
+
+    old = signal.signal(signal.SIGALRM, handler)
+    signal.setitimer(signal.ITIMER_REAL, float(seconds))
+    try:
+        yield
+    finally:
+        signal.setitimer(signal.ITIMER_REAL, 0.0)
+        signal.signal(signal.SIGALRM, old)
+
+
+def _failure(e: BaseException) -> CombinationFailed:
+    """A fresh CombinationFailed for ``e``, holding no traceback (whose
+    frames would keep the job's tensors alive)."""
+    if isinstance(e, CombinationFailed):
+        return CombinationFailed(str(e), transient=e.transient)
+    msg = str(e).strip().splitlines()[0] if str(e).strip() else ""
+    return CombinationFailed(f"{type(e).__name__}: {msg}")
+
+
+# --- the dry run's op accounting ------------------------------------------------
+
+#: ops that move no data: factories that leave memory unwritten
+_NO_DATA = {"empty", "empty_like", "empty_strided", "new_empty",
+            "new_empty_strided", "lift_fresh"}
+
+
+def _sdpa_flops(func, args) -> float:
+    """Flops of a ``_scaled_dot_product*`` op that ``FlopCounterMode`` has
+    no formula for (the CPU's ``_for_cpu`` variants): the forward's two
+    products, 4 B H Sq Sk D; the backward's five, 2.5 times that."""
+    q, k = args[0], args[1]
+    fwd = 4.0 * math.prod(q.shape[:-1]) * k.shape[-2] * q.shape[-1]
+    return 2.5 * fwd if "backward" in func.overloadpacket.__name__ else fwd
+
+
+def _touched_bytes(t: torch.Tensor) -> int:
+    """Bytes of the distinct elements a tensor covers (a broadcast dim,
+    stride 0, is read once)."""
+    n = 1
+    for size, stride in zip(t.shape, t.stride()):
+        if stride:
+            n *= size
+    return n * t.element_size()
+
+
+class OpCounter(TorchDispatchMode):
+    """Counts a program's work as it runs (on fake tensors, in the dry
+    run): flops by ``torch.utils.flop_counter.FlopCounterMode`` (every
+    ``mm``, ``bmm``, ``addmm``, ``baddbmm``, convolution and
+    ``_scaled_dot_product_*`` op, and the hand-written kernels' ops by the
+    formulas ``kernels/ops.py`` registers), bytes as each operator's
+    inputs read and outputs written once (views and uninitialised
+    allocations move nothing).  A kernel op counts as one operator: its
+    inputs and outputs, flash-decode's whole cache with them."""
+
+    def __init__(self):
+        super().__init__()
+        from torch.utils.flop_counter import FlopCounterMode
+        self._flops = FlopCounterMode(display=False)
+        self.extra_flops = 0.0
+        self.bytes = 0
+
+    def __enter__(self):
+        self._flops.__enter__()
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        super().__exit__(*exc)
+        self._flops.__exit__(*exc)
+
+    @property
+    def flops(self) -> float:
+        return self._flops.get_total_flops() + self.extra_flops
+
+    def flops_by_op(self) -> Dict[str, float]:
+        """Flops of each counted operator, by its name (``mm``,
+        ``flash_attention``, ...)."""
+        return {op.__name__.split(".")[-1]: float(n) for op, n in
+                self._flops.get_flop_counts().get("Global", {}).items()}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.utils.flop_counter import flop_registry
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        name = func.overloadpacket.__name__
+        if name.startswith("_scaled_dot_product") and \
+                func.overloadpacket not in flop_registry:
+            self.extra_flops += _sdpa_flops(func, args)
+        if not (func.namespace == "prim" or getattr(func, "is_view", False)
+                or name in _NO_DATA):
+            self.bytes += sum(
+                _touched_bytes(t) for t in pytree_leaves((args, kwargs, out))
+                if isinstance(t, torch.Tensor))
+        return out
+
+
+class DryRunExecutor:
+    """Analytic scoring: flops and bytes of the segment's program on fake
+    tensors (no device memory), over ``hw``'s peak rates."""
+
+    #: analytic scoring: concurrent workers don't perturb each other
+    parallel_safe = True
+    n_chips = 1
+
+    def __init__(self, hw: Hardware = H100,
+                 timeout_s: Optional[float] = 300):
+        self.hw = hw
+        self.timeout_s = timeout_s
+
+    @property
+    def cache_tag(self) -> str:
+        """Score-cache identity: scores of another executor or hardware
+        model are never served."""
+        return f"dryrun:{self.hw.name}"
+
+    def count(self, cfg: ArchConfig, shape: ShapeConfig, seg: Segment,
+              combo: Combination,
+              knobs: Optional[GlobalKnobs] = None) -> OpCounter:
+        """Run the segment's program on fake tensors under an OpCounter."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            fn, args = segment_program(cfg, shape, seg, combo, device="cpu",
+                                       knobs=knobs)
+            with OpCounter() as counter:
+                fn(*args)
+        return counter
+
+    def score_segment(self, cfg: ArchConfig, shape: ShapeConfig,
+                      seg: Segment, combo: Combination,
+                      knobs: Optional[GlobalKnobs] = None,
+                      mesh=None) -> CostTerms:
+        require_meshless(mesh)
+        err = None
+        try:
+            with deadline(self.timeout_s):
+                counter = self.count(cfg, shape, seg, combo, knobs)
+        except Exception as e:      # the program fails = invalid combination
+            err = _failure(e)
+        if err is not None:
+            raise err
+        return terms_from_analysis(counter.flops, counter.bytes, 0.0, 1,
+                                   self.hw)
+
+
+class WallClockExecutor:
+    """Empirical timing on one device: ComPar's measurement loop.
+
+    The program is built once, called once to warm up, then timed over
+    ``repeats`` calls; the score is the median.  A combination that does
+    not fit the card (``torch.cuda.OutOfMemoryError``) is a recorded
+    failure, as a compiler failing on a benchmark is in ComPar.  Every
+    tensor of a job is released before the next one starts.
+    """
+
+    #: concurrent timed runs contend on the device and corrupt medians
+    parallel_safe = False
+    n_chips = 1
+
+    def __init__(self, device="cuda", repeats: int = 5,
+                 timeout_s: Optional[float] = 120):
+        self.device = resolve_device(device)
+        self.repeats = repeats
+        self.timeout_s = timeout_s
+
+    @property
+    def cache_tag(self) -> str:
+        # measured times are the hardware's: medians from different cards
+        # (or hosts) never share a score-cache row
+        name = torch.cuda.get_device_name(self.device) \
+            if self.device.type == "cuda" else platform.machine()
+        return f"wallclock:r{self.repeats}:{self.device.type}:{name}"
+
+    def _measure(self, cfg, shape, seg, combo, knobs):
+        cuda = self.device.type == "cuda"
+        fn, args = segment_program(cfg, shape, seg, combo,
+                                   device=self.device, knobs=knobs)
+        out = fn(*args)                             # warm-up
+        if cuda:
+            torch.cuda.synchronize(self.device)
+        del out
+        times, events = [], []
+        for _ in range(self.repeats):
+            if cuda:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(*args)
+                end.record()
+                events.append((start, end))
+            else:
+                t0 = time.perf_counter()
+                out = fn(*args)
+                times.append(time.perf_counter() - t0)
+            del out
+        if cuda:
+            torch.cuda.synchronize(self.device)
+            times = [s.elapsed_time(e) / 1e3 for s, e in events]
+        return times
+
+    def score_segment(self, cfg: ArchConfig, shape: ShapeConfig,
+                      seg: Segment, combo: Combination,
+                      knobs: Optional[GlobalKnobs] = None,
+                      mesh=None) -> CostTerms:
+        require_meshless(mesh)
+        cuda = self.device.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(self.device)
+            torch.cuda.reset_peak_memory_stats(self.device)
+        err = None
+        try:
+            with deadline(self.timeout_s):
+                times = self._measure(cfg, shape, seg, combo, knobs)
+        except Exception as e:
+            err = _failure(e)
+        # the job's tensors die with _measure's frame (the failure keeps
+        # no traceback): hand their blocks back before the next job
+        gc.collect()
+        peak = 0
+        if cuda:
+            torch.cuda.synchronize(self.device)
+            peak = torch.cuda.max_memory_allocated(self.device)
+            torch.cuda.empty_cache()
+        if err is not None:
+            raise err
+        wall = statistics.median(times)
+        t = CostTerms(compute_s=wall, bytes_per_device=float(peak))
+        t.detail.update({"wall_s": wall, "repeats_s": times,
+                         "peak_bytes": float(peak)})
+        return t
+
+
+# --- the sweep runner -----------------------------------------------------------
+
+# One unique program to score; ``segments`` lists the incumbent scopes of
+# every (segment, combination) row that shares it.  The dataclass lives in
+# backends.base, where the Scheduler builds it.
+from repro_torch.core.backends.base import JobSpec as SweepJob  # noqa: E402
+
+
+@dataclass
+class JobResult:
+    job: SweepJob
+    status: str                       # done | failed | pruned
+    cost: Optional[CostTerms] = None
+    error: str = ""
+    transient: bool = False           # deadline: retryable, uncacheable
+
+
+class ParallelSweepRunner:
+    """Score unique (segment, combination) programs, in-thread or on a
+    thread pool.
+
+    * ``workers=1`` is a plain in-thread loop, so the hard (SIGALRM)
+      deadline applies on the main thread.
+    * With ``prune=True`` a job whose analytic lower bound exceeds the
+      incumbent best of every member scope is skipped as ``pruned``
+      (exact: bound <= score).  Jobs run cheapest-bound-first.
+    """
+
+    def __init__(self, executor, cfg: ArchConfig, shape: ShapeConfig, *,
+                 workers: int = 1, prune: bool = False,
+                 prune_margin: float = 0.1):
+        from repro_torch.core.backends.base import IncumbentTracker
+        self.executor = executor
+        self.cfg = cfg
+        self.shape = shape
+        self.workers = max(1, int(workers))
+        self.prune = prune
+        self.prune_margin = prune_margin
+        self.tracker = IncumbentTracker(prune, prune_margin)
+
+    def _run_job(self, job: SweepJob) -> JobResult:
+        if self.tracker.pruned(job):
+            return JobResult(job, "pruned",
+                             error=f"lower bound {job.bound_s:.3e}s > "
+                                   f"incumbent best")
+        try:
+            cost = self.executor.score_segment(
+                self.cfg, self.shape, job.seg, job.combo, knobs=job.knobs)
+        except CombinationFailed as e:
+            return JobResult(job, "failed", error=str(e),
+                             transient=getattr(e, "transient", False))
+        except Exception as e:
+            # a scorer's own bug fails the row, not the sweep
+            return JobResult(job, "failed", error=f"{type(e).__name__}: {e}")
+        self.tracker.observe(job.segments, cost.total_s)
+        return JobResult(job, "done", cost=cost)
+
+    def run(self, jobs: Sequence[SweepJob],
+            incumbents: Optional[Dict[str, float]] = None
+            ) -> Iterator[JobResult]:
+        """Yield a :class:`JobResult` per job as each completes.
+        ``incumbents``: scope -> best known total_s, to seed pruning."""
+        self.tracker.seed(incumbents)
+        hw = getattr(self.executor, "hw", H100)
+        for job in jobs:
+            if job.bound_s <= 0.0:      # Scheduler-built jobs arrive bounded
+                job.bound_s = combo_lower_bound(
+                    self.cfg, self.shape, job.seg, job.combo, 1, hw,
+                    knobs=job.knobs)
+        ordered = sorted(jobs, key=lambda j: (j.bound_s, j.key))
+
+        if self.workers == 1:
+            for job in ordered:
+                yield self._run_job(job)
+            return
+
+        with ThreadPoolExecutor(max_workers=self.workers) as pool:
+            pending = {pool.submit(self._run_job, j) for j in ordered}
+            while pending:
+                finished, pending = wait(pending,
+                                         return_when=FIRST_COMPLETED)
+                for fut in finished:
+                    yield fut.result()
+

@@ -1,8 +1,10 @@
 """Parallelization plans: per-segment Combination + global knobs.
 
-The port loads and applies plans; it does not fuse them yet.  Without a
-mesh there is no provider mapping to resolve, so applying a plan gives
-each segment its clause.
+A :class:`Plan` is ComParX's "output program": the sweep fuses one
+(``core/tuner.py``, ``core/fusion.py``), and the step factories apply it.
+Without a mesh there is no provider mapping to resolve, so applying a
+plan gives each segment its clause.  ``Plan.lint`` waits for the static
+analyzer (ROADMAP Queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ class Plan:
 
     def to_json(self) -> Dict:
         return {"segments": {k: c.to_json() for k, c in self.segments.items()},
-                "knobs": vars(self.knobs), "meta": self.meta,
+                "knobs": self.knobs.to_json(), "meta": self.meta,
                 "mesh": self.mesh}
 
     @classmethod
@@ -48,6 +50,14 @@ class Plan:
     def load(cls, path: str) -> "Plan":
         with open(path) as f:
             return cls.from_json(json.load(f))
+
+    def describe(self) -> str:
+        lines = [f"knobs: {self.knobs.key()}"]
+        if self.mesh is not None:
+            lines.insert(0, f"mesh: {self.mesh}")
+        for seg, c in sorted(self.segments.items()):
+            lines.append(f"  {seg:8s} -> {c.label()}")
+        return "\n".join(lines)
 
 
 def uniform_plan(cfg: ArchConfig, provider: str,

@@ -1,0 +1,493 @@
+"""ComParX tuner: the paper's end-to-end workflow (Fig. 1), as the
+reference's ``src/repro/core/tuner.py``.
+
+Fragmentor -> Combinator (-> DB register) -> Executor per (combination,
+knob point) (-> DB record, Continue-mode resumable) -> black-box
+validation -> Optimal Plan Generator -> fused Plan whose ``knobs`` are the
+joint argmin over the swept GlobalKnobs grid.
+
+The sweep runs the three-stage pipeline of ``repro_torch.core.backends``:
+the **Scheduler** groups rows that build the same program, resolves whole
+groups from the persistent ``score_cache`` and orders the rest
+cheapest-lower-bound-first; the **ScoringBackend** (``thread`` or
+``sequential``) scores the unique programs; the **Recorder** fans
+outcomes back out to the rows and writes them in batches.
+
+The port is meshless, on one device.  What the reference sweeps beyond
+that raises, naming the ROADMAP item that brings it: ``mesh``/
+``mesh_space`` (Queue 1 item 4); ``kernel_space``, ``machine``,
+``registry``, ``remote_url`` and the process/remote backends (item 5).
+``static_checks`` takes only ``"off"`` (the analyzer is item 5 too).
+"""
+from __future__ import annotations
+
+import logging
+import time
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
+
+from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.core.backends import (RetryPolicy, Recorder, Scheduler,
+                                       drive, env_key, make_backend,
+                                       shape_key)
+from repro_torch.core.backends.scheduler import check_static_checks
+from repro_torch.core.combinator import (Combination, GlobalKnobs, SweepSpec,
+                                         enumerate_combinations, global_grid,
+                                         paper_combination_count,
+                                         require_meshless, row_cid,
+                                         swept_knob_fields)
+from repro_torch.core.cost_model import H100, CostTerms, combo_lower_bound
+from repro_torch.core.db import SweepDB
+from repro_torch.core.executor import DryRunExecutor, WallClockExecutor
+from repro_torch.core.fusion import best_uniform, fuse_joint
+from repro_torch.core.plan import Plan
+from repro_torch.core.providers import all_providers, get_provider
+from repro_torch.core.segment import Segment, fragment
+from repro_torch.device import resolve_device
+
+log = logging.getLogger("repro_torch.tuner")
+
+ITEM5 = "ROADMAP Queue 1 item 5 ({})"
+
+
+def _pending(what: str, item: str):
+    raise NotImplementedError(f"{what} is not ported yet: {item}")
+
+
+@dataclass
+class SweepReport:
+    project: str
+    n_combinations: int     # realized registered rows (incl. the knob axis)
+    n_done: int = 0
+    n_failed: int = 0
+    n_invalid: int = 0
+    n_pruned: int = 0       # rows skipped by the exact lower-bound prune
+    n_scored: int = 0       # programs that actually ran and were scored
+    n_cached: int = 0       # rows served from the persistent score cache
+    n_shared: int = 0       # rows that shared an in-run score
+    n_transient: int = 0    # rows failed by a deadline (retryable)
+    n_inapplicable: int = 0  # (segment, combination) pairs dropped because
+                             # the provider is inapplicable to the segment
+    n_knob_points: int = 1  # GlobalKnobs points swept (the RTL axis)
+    paper_count: int = 0    # the paper's formula, an upper bound
+    elapsed_s: float = 0.0
+    n_transient_retried: int = 0    # extra dispatches of transient retries
+    #: failure-kind histogram over FAILED rows ("deterministic",
+    #: "transient")
+    failure_kinds: Dict[str, int] = field(default_factory=dict)
+    #: the winning knob point's per-segment valid rows
+    per_segment: Dict[str, List[Tuple[Combination, CostTerms]]] = \
+        field(default_factory=dict)
+    #: knobs.key() -> fused predicted total, every fusable knob point
+    per_knob_total_s: Dict[str, float] = field(default_factory=dict)
+    #: segment kind -> {"n", "mean", "max"} of bound/measured over done
+    #: rows (a ratio > 1 means the certificate broke: audit_soundness)
+    bound_tightness: Dict[str, Dict[str, float]] = field(default_factory=dict)
+
+    def summary(self) -> str:
+        s = (f"project={self.project} knob_points={self.n_knob_points} "
+             f"done={self.n_done} failed={self.n_failed} "
+             f"invalid={self.n_invalid} pruned={self.n_pruned} "
+             f"scored={self.n_scored} cached={self.n_cached} "
+             f"shared={self.n_shared} transient={self.n_transient} "
+             f"realized={self.n_combinations} "
+             f"paper_formula_upper_bound={self.paper_count} "
+             f"elapsed={self.elapsed_s:.1f}s")
+        if self.n_inapplicable:
+            s += f" inapplicable={self.n_inapplicable}"
+        if self.n_transient_retried:
+            s += f" transient_retried={self.n_transient_retried}"
+        if self.failure_kinds:
+            kinds = ",".join(f"{k}:{v}" for k, v in
+                             sorted(self.failure_kinds.items()))
+            s += f" failure_kinds={kinds}"
+        if self.bound_tightness:
+            tight = ",".join(
+                f"{k}:mean={v['mean']:.2f}/max={v['max']:.2f}(n={v['n']})"
+                for k, v in sorted(self.bound_tightness.items()))
+            s += f" bound_tightness={tight}"
+        return s
+
+
+@dataclass(frozen=True)
+class BackendOptions:
+    """``sweep()``'s scoring-backend kwargs as one typed value; a bundle
+    plus a non-default bare twin raises."""
+    backend: str = "thread"
+    workers: int = 1
+    retry: Optional[object] = None          # backends.RetryPolicy
+    transient_retries: Optional[int] = None
+
+
+@dataclass(frozen=True)
+class SearchOptions:
+    """``sweep()``'s search-strategy kwargs as one typed value; same
+    conflict contract as :class:`BackendOptions`."""
+    prune: bool = False
+    prune_margin: float = 0.1
+    static_checks: str = "off"
+    use_cache: bool = True
+    share_scores: bool = True
+    record_batch: int = 64
+
+
+def _unbundle(bundle, bare: Dict[str, Tuple], kind: str) -> List:
+    """Explode a kwarg bundle, refusing non-default bare twins."""
+    clash = [k for k, (v, d) in bare.items() if v is not d and v != d]
+    if clash:
+        raise ValueError(
+            f"{kind} conflicts with bare kwarg(s) {sorted(clash)}: pass "
+            f"the value inside the bundle or drop the bundle")
+    return [getattr(bundle, f) for f in bundle.__dataclass_fields__]
+
+
+class ComParTuner:
+    """Sweep (provider x flags x clause) per segment of ``cfg`` at
+    ``shape``, score, record, fuse.
+
+    ``executor``: ``"dryrun"`` (flops and bytes on fake tensors, over an
+    H100's peak rates; no device) or ``"wallclock"`` (medians measured on
+    ``device``, ``"cuda"`` unless the caller asks for ``"cpu"``).
+    """
+
+    def __init__(self, cfg: ArchConfig, shape: ShapeConfig, *,
+                 device="cuda", db: Optional[SweepDB] = None,
+                 project: Optional[str] = None, mode: str = "new",
+                 executor: str = "dryrun", validate: bool = False,
+                 timeout_s: Optional[float] = 300, mesh=None,
+                 machine=None, registry=None):
+        require_meshless(mesh)
+        if machine is not None:
+            _pending("machine=", ITEM5.format("core/machine.py"))
+        if registry is not None:
+            _pending("registry=", ITEM5.format("serve/registry.py"))
+        self.cfg = cfg
+        self.shape = shape
+        self.device = resolve_device(device)
+        if executor == "dryrun":
+            self.executor = DryRunExecutor(timeout_s=timeout_s)
+        elif executor == "wallclock":
+            self.executor = WallClockExecutor(self.device,
+                                              timeout_s=timeout_s)
+        else:
+            raise ValueError(f"executor={executor!r}; expected 'dryrun' or "
+                             f"'wallclock'")
+        self.db = db or SweepDB(":memory:")
+        name = project or f"{cfg.name}-{shape.name}"
+        self.project = self.db.open_project(
+            name, mode, {"arch": cfg.name, "shape": shape.name})
+        self.validate = validate
+
+    # ------------------------------------------------------------------
+    def sweep(self, providers: Optional[Sequence[str]] = None,
+              clause_space=None, *,
+              spec: Optional[SweepSpec] = None,
+              budget: Optional[int] = None,
+              knobs: GlobalKnobs = GlobalKnobs(),
+              global_space: Optional[Dict[str, Tuple]] = None,
+              mesh_space: Optional[Sequence] = None,
+              boundary_costs: bool = False,
+              max_flags: Optional[int] = None,
+              backend="thread",
+              search: Optional[SearchOptions] = None,
+              workers: int = 1,
+              remote_url: Optional[str] = None,
+              fallback: Optional[str] = None,
+              retry=None,
+              transient_retries: Optional[int] = None,
+              kernel_space=None,
+              static_checks: str = "off",
+              prune: bool = False, prune_margin: float = 0.1,
+              use_cache: bool = True, share_scores: bool = True,
+              record_batch: int = 64) -> Tuple[Plan, SweepReport]:
+        """Run the sweep; returns ``(plan, report)``.  The kwargs are the
+        reference's:
+
+        ``spec``          a :class:`SweepSpec` carrying the providers and
+                          the clause and knob grids as one value
+                          (conflicts with the bare kwargs it covers)
+        ``search`` / ``backend``  :class:`SearchOptions` /
+                          :class:`BackendOptions` bundles of the kwargs
+                          below (a bundle plus a non-default twin raises)
+        ``global_space``  GlobalKnobs grid swept as the outer axis; the
+                          plan's ``knobs`` are the joint argmin.  Default
+                          ``None`` = the single point ``knobs``.
+        ``boundary_costs``  fuse by Viterbi over boundary costs (all 0
+                          meshless: the argmin's plan)
+        ``backend``       ``"thread"`` (default) | ``"sequential"``;
+                          ``workers`` threads (1 for the wall clock)
+        ``retry`` / ``transient_retries``  in-sweep retry rounds of
+                          transient (deadline) failures
+        ``static_checks`` ``"off"`` only: the static analyzer is not
+                          ported (ROADMAP Queue 1 item 5); the
+                          reference's default is ``"warn"``
+        ``prune``         exact lower-bound pruning (dry run only)
+        ``use_cache``     the persistent structural score cache
+        ``share_scores``  one program per structurally identical group
+        ``record_batch``  DB rows per write transaction
+
+        ``mesh_space`` (item 4), ``kernel_space``, ``remote_url`` and
+        ``fallback`` (item 5) raise; the bundles carry none of them.
+        """
+        t0 = time.time()
+        if isinstance(backend, BackendOptions):
+            (backend, workers, retry, transient_retries) = _unbundle(
+                backend,
+                {"workers": (workers, 1), "retry": (retry, None),
+                 "transient_retries": (transient_retries, None)},
+                "BackendOptions")
+        if search is not None:
+            if not isinstance(search, SearchOptions):
+                raise ValueError(f"search= takes a SearchOptions, got "
+                                 f"{type(search).__name__}")
+            (prune, prune_margin, static_checks, use_cache, share_scores,
+             record_batch) = \
+                _unbundle(
+                    search,
+                    {"prune": (prune, False),
+                     "prune_margin": (prune_margin, 0.1),
+                     "static_checks": (static_checks, "off"),
+                     "use_cache": (use_cache, True),
+                     "share_scores": (share_scores, True),
+                     "record_batch": (record_batch, 64)},
+                    "SearchOptions")
+        if spec is not None:
+            if not isinstance(spec, SweepSpec):
+                raise ValueError(f"spec= takes a SweepSpec, got "
+                                 f"{type(spec).__name__}")
+            clash = [k for k, v in
+                     {"providers": providers, "clause_space": clause_space,
+                      "global_space": global_space}.items()
+                     if v is not None]
+            if clash:
+                raise ValueError(
+                    f"spec= conflicts with bare kwarg(s) {sorted(clash)}: "
+                    f"the SweepSpec already carries those axes")
+            providers = list(spec.providers) or None
+            clause_space = spec.clauses
+            global_space = spec.globals
+        require_meshless(mesh_space, "mesh_space")
+        if kernel_space is not None:
+            _pending("kernel_space=", ITEM5.format("kernels/autotune.py"))
+        if remote_url is not None:
+            _pending("remote_url=", ITEM5.format("core/backends/*"))
+        check_static_checks(static_checks)
+        if workers > 1 and not self.executor.parallel_safe:
+            log.warning("workers=%d -> 1: %s timings would contend on the "
+                        "device", workers, type(self.executor).__name__)
+            workers = 1
+        if prune and not hasattr(self.executor, "hw"):
+            # the bound is in the hardware model's units; against measured
+            # seconds the certificate (bound <= score) does not hold
+            log.warning("prune disabled: %s has no hardware model",
+                        type(self.executor).__name__)
+            prune = False
+        points = global_grid(global_space) if global_space is not None \
+            else [knobs]
+        providers = list(providers or all_providers())
+        segs = fragment(self.cfg)
+
+        combos = enumerate_combinations(providers, clause_space,
+                                        budget=budget, max_flags=max_flags)
+        rep = SweepReport(
+            self.project, n_combinations=0, n_knob_points=len(points),
+            paper_count=paper_combination_count(
+                [len(get_provider(p).flags) for p in providers],
+                n_rtl=len(swept_knob_fields(global_space)),
+                n_d=len(clause_space or {}) or 6))
+
+        # Combinator: register every (segment, combination, knob point) in
+        # one transaction; inapplicable (provider, segment) pairs are
+        # counted, not silently dropped
+        per_seg_combos: Dict[str, List[Combination]] = {}
+        for seg in segs:
+            kept: List[Combination] = []
+            for c in combos:
+                if not get_provider(c.provider).applicable(self.cfg, seg):
+                    rep.n_inapplicable += 1
+                    continue
+                kept.append(c)
+            per_seg_combos[seg.name] = kept
+        reg = [(seg.name, c, kn) for kn in points for seg in segs
+               for c in per_seg_combos[seg.name]]
+        rep.n_combinations = len(reg)
+        self.db.register_many(self.project, reg)
+
+        self._execute(segs, per_seg_combos, points, rep, backend=backend,
+                      workers=workers, fallback=fallback, retry=retry,
+                      transient_retries=transient_retries, prune=prune,
+                      prune_margin=prune_margin, use_cache=use_cache,
+                      share_scores=share_scores, record_batch=record_batch)
+
+        # collect valid results per (knob point, segment)
+        by_rid = {(r["segment"], r["cid"]): r
+                  for r in self.db.results(self.project)}
+        per_knob: Dict[str, Dict[str, List[Tuple[Combination,
+                                                 CostTerms]]]] = {}
+        for kn in points:
+            table = per_knob.setdefault(kn.kid, {})
+            for seg in segs:
+                good = table.setdefault(seg.name, [])
+                for c in per_seg_combos[seg.name]:
+                    r = by_rid.get((seg.name, row_cid(c, kn)))
+                    if r is not None and r["status"] == "done" \
+                            and r["cost"]:
+                        good.append((c, CostTerms.from_dict(r["cost"])))
+
+        counts = self.db.done_count(self.project)
+        rep.n_done = counts.get("done", 0)
+        rep.n_failed = counts.get("failed", 0)
+        rep.n_invalid = counts.get("invalid", 0)
+        rep.n_pruned = counts.get("pruned", 0)
+        rep.bound_tightness, violations = self._bound_tightness()
+        if violations and hasattr(self.executor, "hw"):
+            log.warning("bound soundness violated on %d done row(s): %s",
+                        len(violations), violations[:3])
+
+        plan = fuse_joint(self.cfg, self.shape, None, per_knob, points,
+                          boundary_costs=boundary_costs)
+        rep.per_segment = per_knob[plan.knobs.kid]
+        plan.meta["project"] = self.project
+        rep.per_knob_total_s = dict(plan.meta["per_knob_total_s"])
+        rep.elapsed_s = time.time() - t0
+        log.info(rep.summary())
+        return plan, rep
+
+    # ------------------------------------------------------------------
+    def _bound_tightness(self):
+        """Recompute ``combo_lower_bound`` for every ``done`` row of this
+        project against its recorded score: a per-segment-kind ``{"n",
+        "mean", "max"}`` table of bound/measured and the rows where the
+        bound exceeded the score (which the certificate says are none)."""
+        hw = getattr(self.executor, "hw", H100)
+        segs = {s.name: s for s in fragment(self.cfg)}
+        stats: Dict[str, Dict[str, float]] = {}
+        violations = []
+        for r in self.db.results(self.project):
+            if r["status"] != "done" or not r["cost"]:
+                continue
+            seg = segs.get(r["segment"])
+            if seg is None:
+                continue
+            bound = combo_lower_bound(self.cfg, self.shape, seg, r["combo"],
+                                      1, hw, knobs=r["knobs"])
+            total = CostTerms.from_dict(r["cost"]).total_s
+            if total <= 0.0:
+                continue
+            ratio = bound / total
+            st = stats.setdefault(seg.kind, {"n": 0, "sum": 0.0, "max": 0.0})
+            st["n"] += 1
+            st["sum"] += ratio
+            st["max"] = max(st["max"], ratio)
+            if bound > total * (1.0 + 1e-9):
+                violations.append((r["segment"], r["cid"], bound, total))
+        table = {k: {"n": int(v["n"]), "mean": v["sum"] / v["n"],
+                     "max": v["max"]} for k, v in stats.items() if v["n"]}
+        return table, violations
+
+    def audit_soundness(self) -> Dict[str, Dict[str, float]]:
+        """Assert ``combo_lower_bound <= score`` on every ``done`` row of
+        this project; returns the per-kind tightness table.
+
+        With the dry run this checks the pruning certificate (bound and
+        score share ``executor.hw``).  Wall-clock scores are seconds on a
+        real card, not the model's units, so there only the table is
+        returned."""
+        table, violations = self._bound_tightness()
+        if violations and hasattr(self.executor, "hw"):
+            lines = "; ".join(
+                f"{seg}/{cid}: bound={b:.3e} > measured={t:.3e}"
+                for seg, cid, b, t in violations[:10])
+            raise AssertionError(
+                f"combo_lower_bound overshoots {len(violations)} done "
+                f"row(s) — pruning certificate broken: {lines}")
+        return table
+
+    # ------------------------------------------------------------------
+    def _execute(self, segs: Sequence[Segment],
+                 per_seg_combos: Dict[str, List[Combination]],
+                 knob_points: Sequence[GlobalKnobs],
+                 rep: SweepReport, *, backend: str, workers: int,
+                 fallback: Optional[str], retry,
+                 transient_retries: Optional[int], prune: bool,
+                 prune_margin: float, use_cache: bool,
+                 share_scores: bool, record_batch: int):
+        """Score everything not already settled (Continue mode):
+        Scheduler -> ScoringBackend -> Recorder, with bounded transient
+        retry rounds (``scheduler.drive``)."""
+        # ONE key pair for the whole pipeline: the Recorder writes cache
+        # entries under the keys the Scheduler reads
+        sk, mk = shape_key(self.shape), env_key(None, self.executor)
+        scheduler = Scheduler(
+            self.db, self.project, self.cfg, self.shape, None,
+            self.executor, validate=self.validate,
+            share_scores=share_scores, use_cache=use_cache,
+            shape_key=sk, mesh_key=mk)
+        recorder = Recorder(
+            self.db, self.project, rep, shape_key=sk, mesh_key=mk,
+            use_cache=use_cache, batch=record_batch)
+        work = scheduler.build(segs, per_seg_combos, recorder,
+                               knob_points=knob_points)
+        engine = make_backend(backend, self.executor, self.cfg, self.shape,
+                              workers=workers, prune=prune,
+                              prune_margin=prune_margin, fallback=fallback)
+        policy = retry if retry is not None else RetryPolicy()
+        rounds = policy.sweep_retries if transient_retries is None \
+            else transient_retries
+        try:
+            drive(engine, work, recorder, transient_retries=rounds)
+        finally:
+            try:
+                recorder.flush()
+            finally:
+                engine.close()
+
+    def close(self):
+        """Nothing to release: the thread backends hold no workers between
+        sweeps.  Kept for the reference's API and context manager."""
+
+    def __enter__(self) -> "ComParTuner":
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    # ------------------------------------------------------------------
+    def baselines(self, knobs: GlobalKnobs = GlobalKnobs(), *,
+                  global_space: Optional[Dict[str, Tuple]] = None):
+        """Per-provider best uniform plans (the numbers behind the paper's
+        Fig. 2/4 analogues): provider -> predicted total.  With
+        ``global_space`` each provider's best is over any swept knob
+        point, the fair comparison against a joint-argmin fused plan."""
+        points = global_grid(global_space) if global_space is not None \
+            else [knobs]
+        kids = {kn.kid: kn for kn in points}
+        segs = fragment(self.cfg)
+        by_kid: Dict[str, Dict[str, List[Tuple[Combination,
+                                               CostTerms]]]] = {}
+        for r in self.db.results(self.project):
+            if r["status"] != "done" or not r["cost"]:
+                continue
+            kid = (r["knobs"] or GlobalKnobs()).kid
+            by_kid.setdefault(kid, {}).setdefault(r["segment"], []).append(
+                (r["combo"], CostTerms.from_dict(r["cost"])))
+        out = {}
+        for pname in all_providers():
+            best = None
+            for kid, rows in by_kid.items():
+                kn = kids.get(kid)
+                if kn is None:
+                    continue
+                per_seg = {s.name: [(c, t) for c, t in rows.get(s.name, [])
+                                    if c.provider == pname] for s in segs}
+                if not all(per_seg.values()):
+                    continue
+                try:
+                    _, total = best_uniform(self.cfg, per_seg, kn)
+                except ValueError:
+                    continue
+                if best is None or total < best:
+                    best = total
+            if best is not None:
+                out[pname] = best
+        return out

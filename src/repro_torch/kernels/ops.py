@@ -1,20 +1,28 @@
 """Model-layout ops over the kernels, differentiable as the reference's.
 
-Dispatch is on the tensor's device and nothing else: a CUDA tensor goes to
-the hand-written kernel (a failed build or launch raises), a CPU tensor to
-the kernel's plain version in ``kernels/ref.py``.
+Each op is a PyTorch operator, ``torch.ops.repro_torch.<name>``, and
+dispatch is on the tensor's device and nothing else: its CUDA
+implementation is the hand-written kernel (a failed build or launch
+raises), its CPU implementation the kernel's plain version in
+``kernels/ref.py``.  Other devices raise.
 
-Every op but flash-decode is a ``torch.autograd.Function``, as every op of
-the reference is a ``jax.custom_vjp`` (``src/repro/kernels/ops.py``): the
-forward runs the kernel (or, on the CPU, its plain version), and the
-backward recomputes the reference's plain math on the saved inputs under
-``torch.enable_grad()`` and returns ``torch.autograd.grad`` of it.  There
-is no backward kernel, in the reference either.  Flash-decode serves
-only; it raises if asked for a gradient.
+Every op but flash-decode has a backward, as every op of the reference is
+a ``jax.custom_vjp`` (``src/repro/kernels/ops.py``): it recomputes the
+reference's plain math on the saved inputs under ``torch.enable_grad()``
+and returns ``torch.autograd.grad`` of it.  There is no backward kernel,
+in the reference either.  Flash-decode serves only; it raises if asked
+for a gradient.
+
+Each op also has a fake implementation (an empty output of the right
+shape and dtype, for ``FakeTensorMode``) and a flop formula for
+``torch.utils.flop_counter.FlopCounterMode``: the kernel's own products,
+as ``chip_smoke.py``'s bound counts them.  The sweep's dry run
+(``core/executor.py``) counts an op like any other operator from these.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import ref as R
 from repro_torch.kernels.flash_attention import flash_attention_fwd
@@ -22,15 +30,6 @@ from repro_torch.kernels.flash_decode import flash_decode_fwd
 from repro_torch.kernels.mlstm import mlstm_fwd
 from repro_torch.kernels.rglru import rglru_fwd
 from repro_torch.kernels.rmsnorm import rmsnorm_fwd
-
-
-def _route(name: str, t) -> bool:
-    """True for the CUDA kernel, False for the plain version."""
-    if t.device.type == "cuda":
-        return True
-    if t.device.type == "cpu":
-        return False
-    raise ValueError(f"{name}: no kernel for device {t.device}")
 
 
 def _vjp(fn, inputs, grads):
@@ -41,15 +40,82 @@ def _vjp(fn, inputs, grads):
         return torch.autograd.grad(fn(*xs), xs, grads)
 
 
+def _define(name: str, schema: str, *, cpu, cuda, fake, flops,
+            backward=None):
+    """Register ``repro_torch::name``: its CPU and CUDA implementations,
+    its fake implementation (which also serves the meta device, and
+    refuses every device without a kernel), its flop formula and, given
+    the plain math ``backward(*tensors, *args)``, its gradient.  The
+    schema lists the tensors first.  Returns the operator."""
+    qual = f"repro_torch::{name}"
+    torch.library.define(qual, schema)
+    torch.library.impl(qual, "cpu", cpu)
+    torch.library.impl(qual, "cuda", cuda)
+
+    def checked_fake(*args):
+        if args[0].device.type not in ("cpu", "cuda"):
+            raise ValueError(f"{name}: no kernel for device {args[0].device}")
+        return fake(*args)
+    torch.library.register_fake(qual, checked_fake)
+    op = getattr(torch.ops.repro_torch, name)
+    register_flop_formula(op)(flops)
+    if backward is not None:
+        def setup_context(ctx, inputs, output):
+            n = sum(isinstance(x, torch.Tensor) for x in inputs)
+            ctx.save_for_backward(*inputs[:n])
+            ctx.args = inputs[n:]
+
+        def grad(ctx, g):
+            return (*_vjp(lambda *ts: backward(*ts, *ctx.args),
+                          ctx.saved_tensors, g), *[None] * len(ctx.args))
+        torch.library.register_autograd(qual, grad,
+                                        setup_context=setup_context)
+    return op.default
+
+
+def attention_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
+    """(q, k) pairs the mask keeps, q and k both at positions 0, 1, ...:
+    each query sees the last ``min(i + 1, span)`` keys."""
+    if not causal:
+        return Sq * Sk
+    span = min(Sk, window) if window else Sk
+    n = min(Sq, span)                  # rows 0 .. n-1 see i + 1 keys
+    return n * (n + 1) // 2 + (Sq - n) * span
+
+
+def mlstm_flops(S: int, dh: int, chunk: int) -> int:
+    """One (b, h)'s products in the mlstm kernel's chunks of ``chunk``
+    rows: q k^T and P v in each chunk, q C from the second chunk on (the
+    first has no state), the state update up to the last."""
+    flops = 0
+    for t0 in range(0, S, chunk):
+        cl = min(chunk, S - t0)
+        flops += 4 * cl * cl * dh
+        if t0:
+            flops += 2 * cl * dh * dh
+        if t0 + chunk < S:
+            flops += 2 * cl * dh * dh
+    return flops
+
+
+#: the mlstm kernel's chunk (csrc/mlstm.cu)
+MLSTM_KERNEL_CHUNK = 64
+
+
 # --- flash attention -----------------------------------------------------------
 
-def _fa_forward(q, k, v, causal, window):
-    qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    if _route("flash_attention", q):
-        o = flash_attention_fwd(qh, kh, vh, causal=causal, window=window)
-    else:
-        o = R.flash_attention_ref(qh, kh, vh, causal=causal, window=window)
-    return o.transpose(1, 2)
+def _heads_first(*ts):
+    return [t.transpose(1, 2) for t in ts]
+
+
+def _fa_cuda(q, k, v, causal, window, block_q):
+    return flash_attention_fwd(*_heads_first(q, k, v), causal=causal,
+                               window=window).transpose(1, 2)
+
+
+def _fa_cpu(q, k, v, causal, window, block_q):
+    return R.flash_attention_ref(*_heads_first(q, k, v), causal=causal,
+                                 window=window).transpose(1, 2)
 
 
 def _fa_plain(q, k, v, causal, window, block_q):
@@ -58,9 +124,7 @@ def _fa_plain(q, k, v, causal, window, block_q):
     reference's ``_ref`` is causal whatever it is asked); a non-causal call
     differentiates ``ref.flash_attention_ref`` instead, on every device."""
     if not causal:
-        qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        return R.flash_attention_ref(qh, kh, vh, causal=False,
-                                     window=window).transpose(1, 2)
+        return _fa_cpu(q, k, v, causal, window, block_q)
     from repro_torch.models.attention import chunked_attention
     pos_q = torch.arange(q.shape[1], device=q.device)
     pos_k = torch.arange(k.shape[1], device=q.device)
@@ -68,17 +132,17 @@ def _fa_plain(q, k, v, causal, window, block_q):
                              window=window, q_chunk=block_q)
 
 
-class _FlashAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, causal, window, block_q):
-        ctx.save_for_backward(q, k, v)
-        ctx.args = (causal, window, block_q)
-        return _fa_forward(q, k, v, causal, window)
+def _fa_flops(q_shape, k_shape, v_shape, causal, window, block_q, *args,
+              **kwargs):
+    B, S, H, D = q_shape
+    return 4 * B * H * D * attention_pairs(S, k_shape[1], causal, window)
 
-    @staticmethod
-    def backward(ctx, g):
-        return (*_vjp(lambda q, k, v: _fa_plain(q, k, v, *ctx.args),
-                      ctx.saved_tensors, g), None, None, None)
+
+_FLASH_ATTENTION = _define(
+    "flash_attention", "(Tensor q, Tensor k, Tensor v, bool causal, "
+    "int window, int block_q) -> Tensor", cpu=_fa_cpu, cuda=_fa_cuda,
+    fake=lambda q, *args: torch.empty_like(q), flops=_fa_flops,
+    backward=_fa_plain)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -89,10 +153,40 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     uses its own tiles and the plain version none, so neither reads them.
     The backward differentiates the plain chunked attention at ``block_q``.
     """
-    return _FlashAttention.apply(q, k, v, causal, window, block_q)
+    return _FLASH_ATTENTION(q, k, v, causal, window, block_q)
 
 
 # --- flash decode --------------------------------------------------------------
+
+def _fd_cuda(q, k_cache, v_cache, pos, return_lse):
+    out = flash_decode_fwd(q, k_cache.transpose(1, 2),
+                           v_cache.transpose(1, 2), pos,
+                           return_lse=return_lse)
+    return list(out) if return_lse else [out]
+
+
+def _fd_cpu(q, k_cache, v_cache, pos, return_lse):
+    out = R.flash_decode_ref(q, k_cache, v_cache, pos, return_lse=return_lse)
+    return list(out) if return_lse else [out]
+
+
+def _fd_fake(q, k_cache, v_cache, pos, return_lse):
+    out = [torch.empty_like(q)]
+    if return_lse:
+        out.append(q.new_empty(q.shape[:2], dtype=torch.float32))
+    return out
+
+
+def _fd_flops(q_shape, k_shape, v_shape, pos, return_lse, *args, **kwargs):
+    B, H, D = q_shape
+    return 4 * B * H * D * min(pos + 1, k_shape[1])
+
+
+_FLASH_DECODE = _define(
+    "flash_decode", "(Tensor q, Tensor k_cache, Tensor v_cache, int pos, "
+    "bool return_lse) -> Tensor[]", cpu=_fd_cpu, cuda=_fd_cuda,
+    fake=_fd_fake, flops=_fd_flops)
+
 
 def flash_decode(q, k_cache, v_cache, pos: int, *, block_k: int = 1024,
                  return_lse: bool = False):
@@ -105,52 +199,43 @@ def flash_decode(q, k_cache, v_cache, pos: int, *, block_k: int = 1024,
             t.requires_grad for t in (q, k_cache, v_cache)):
         raise RuntimeError("flash_decode has no backward (nor has the "
                            "reference's); call it under torch.no_grad()")
-    if _route("flash_decode", q):
-        return flash_decode_fwd(q, k_cache.transpose(1, 2),
-                                v_cache.transpose(1, 2), pos,
-                                return_lse=return_lse)
-    return R.flash_decode_ref(q, k_cache, v_cache, pos,
-                              return_lse=return_lse)
+    out = _FLASH_DECODE(q, k_cache, v_cache, int(pos), return_lse)
+    return tuple(out) if return_lse else out[0]
 
 
 # --- rglru -------------------------------------------------------------------
 
-class _RGLRU(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, log_a, b):
-        ctx.save_for_backward(log_a, b)
-        if _route("rglru", log_a):
-            return rglru_fwd(log_a, b)
-        return R.rglru_ref(log_a, b)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _vjp(R.rglru_ref, ctx.saved_tensors, g)
+_RGLRU = _define(
+    "rglru", "(Tensor log_a, Tensor b) -> Tensor", cpu=R.rglru_ref,
+    cuda=rglru_fwd, fake=lambda log_a, b: torch.empty_like(log_a),
+    flops=lambda a_shape, *args, **kwargs: 3 * a_shape.numel(),
+    backward=R.rglru_ref)
 
 
 def rglru(log_a, b):
     """log_a, b: (B,S,dr) f32 -> h (B,S,dr) f32.  The CUDA kernel scans the
     whole sequence, so the clause's ``mlstm_chunk`` has no part here; the
     backward differentiates ``ref.rglru_ref``."""
-    return _RGLRU.apply(log_a, b)
+    return _RGLRU(log_a, b)
 
 
 # --- mlstm -------------------------------------------------------------------
 
-class _MLSTM(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, li, lf, chunk):
-        ctx.save_for_backward(q, k, v, li, lf)
-        ctx.chunk = chunk
-        if _route("mlstm", q):
-            return mlstm_fwd(q, k, v, li, lf)
-        return R.mlstm_chunkwise_ref(q, k, v, li, lf, chunk=chunk)
+def _mlstm_plain(q, k, v, li, lf, chunk):
+    return R.mlstm_chunkwise_ref(q, k, v, li, lf, chunk=chunk)
 
-    @staticmethod
-    def backward(ctx, g):
-        def plain(q, k, v, li, lf):
-            return R.mlstm_chunkwise_ref(q, k, v, li, lf, chunk=ctx.chunk)
-        return (*_vjp(plain, ctx.saved_tensors, g), None)
+
+def _mlstm_flops(q_shape, *args, **kwargs):
+    B, H, S, dh = q_shape
+    return B * H * mlstm_flops(S, dh, MLSTM_KERNEL_CHUNK)
+
+
+_MLSTM = _define(
+    "mlstm_chunkwise", "(Tensor q, Tensor k, Tensor v, Tensor li, "
+    "Tensor lf, int chunk) -> Tensor", cpu=_mlstm_plain,
+    cuda=lambda q, k, v, li, lf, chunk: mlstm_fwd(q, k, v, li, lf),
+    fake=lambda q, *args: torch.empty_like(q), flops=_mlstm_flops,
+    backward=_mlstm_plain)
 
 
 def mlstm_chunkwise(q, k, v, li, lf, *, chunk: int = 256):
@@ -160,29 +245,22 @@ def mlstm_chunkwise(q, k, v, li, lf, *, chunk: int = 256):
     forward on the CPU and backward everywhere; the CUDA kernel uses its
     own 64-row chunks.
     """
-    return _MLSTM.apply(q, k, v, li, lf, chunk)
+    return _MLSTM(q, k, v, li, lf, chunk)
 
 
 # --- rmsnorm -----------------------------------------------------------------
 
-class _RMSNorm(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x2, scale, eps):
-        ctx.save_for_backward(x2, scale)
-        ctx.eps = eps
-        if _route("rmsnorm", x2):
-            return rmsnorm_fwd(x2, scale, eps=eps)
-        return R.rmsnorm_ref(x2, scale, eps)
-
-    @staticmethod
-    def backward(ctx, g):
-        def plain(x2, scale):
-            return R.rmsnorm_ref(x2, scale, ctx.eps)
-        return (*_vjp(plain, ctx.saved_tensors, g), None)
+_RMSNORM = _define(
+    "rmsnorm", "(Tensor x2, Tensor scale, float eps) -> Tensor",
+    cpu=R.rmsnorm_ref, cuda=lambda x2, scale, eps: rmsnorm_fwd(x2, scale,
+                                                                eps=eps),
+    fake=lambda x2, *args: torch.empty_like(x2),
+    flops=lambda x_shape, *args, **kwargs: 4 * x_shape.numel(),
+    backward=R.rmsnorm_ref)
 
 
 def rmsnorm(x, scale, *, eps: float = 1e-6):
     """x: (..., d) -> RMSNorm of each row by ``scale`` (d,), in x's dtype.
     A standalone op: the models normalise with ``layers.norm_apply``."""
     shp = x.shape
-    return _RMSNorm.apply(x.reshape(-1, shp[-1]), scale, eps).reshape(shp)
+    return _RMSNORM(x.reshape(-1, shp[-1]), scale, eps).reshape(shp)

@@ -9,13 +9,19 @@ Gradients (every op but flash-decode is an autograd Function whose
 backward is autograd of the plain math) are held to the same tolerances.
 """
 import dataclasses
+import statistics
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import get_arch
+from repro_torch.configs import get_arch, get_shape
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.core.combinator import Combination
+from repro_torch.core.executor import WallClockExecutor
 from repro_torch.core.plan import uniform_plan
+from repro_torch.core.segment import fragment
+from repro_torch.core.tuner import ComParTuner
 from repro_torch.kernels import LAUNCHES, ops, ref, reset_launches
 from repro_torch.kernels.flash_attention import route as fa_route
 from repro_torch.models.context import SegmentClause
@@ -579,3 +585,59 @@ def test_train_step_cuda_launches_under_remat(dev, remat, per_step):
     assert bool(torch.isfinite(m["total_loss"]))
     assert LAUNCHES["flash_attention"] == 2 * per_step * cfg.num_layers
     assert all(bool(torch.isfinite(t).all()) for t in tree_leaves(params))
+
+
+# --- the sweep on the card ---------------------------------------------------------
+
+def test_wallclock_executor_times_with_cuda_events(dev):
+    """Medians of CUDA-event times, the card's peak memory over the job,
+    and the card's name in the score-cache tag."""
+    cfg, shape = get_arch("granite-8b").smoke(), \
+        get_shape("train_4k").smoke()
+    ex = WallClockExecutor(dev, repeats=3)
+    assert ex.cache_tag == \
+        f"wallclock:r3:cuda:{torch.cuda.get_device_name(dev)}"
+    seg = fragment(cfg)[1]
+    reset_launches()
+    t = ex.score_segment(cfg, shape, seg, Combination(
+        "fsdp", frozenset(), SegmentClause(kernel="cuda")))
+    times = t.detail["repeats_s"]
+    assert len(times) == 3 and t.total_s == statistics.median(times) > 0
+    assert t.detail["peak_bytes"] > 0
+    assert LAUNCHES["flash_attention"] == 4 * cfg.num_layers   # 1 + 3 calls
+
+
+def test_oversized_segment_is_a_failed_row_and_frees_its_memory(dev):
+    """granite-8b, one layer at full width, B=16, S=16384: the layer's
+    and the head's train programs do not fit the card; their rows fail
+    with the OOM, and every block the jobs took is handed back."""
+    cfg = dataclasses.replace(get_arch("granite-8b"), num_layers=1)
+    shape = ShapeConfig("huge", 16384, 16, "train")
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    tuner = ComParTuner(cfg, shape, device=dev, executor="wallclock")
+    tuner.executor.repeats = 1
+    with pytest.raises(ValueError, match="no valid combination"):
+        tuner.sweep(["fsdp"], {"remat": ("none",), "kernel": ("plain",)})
+    rows = {r["segment"]: r for r in tuner.db.results(tuner.project)}
+    assert rows["g0"]["status"] == "failed"
+    assert "OutOfMemoryError" in rows["g0"]["error"]
+    assert not tuner.db.pending(tuner.project)
+    torch.cuda.synchronize(dev)
+    assert torch.cuda.memory_allocated(dev) - base < 64 * 2**20
+
+
+@pytest.mark.parametrize("name,shape_name,kernels", [
+    ("granite-8b", "train_4k", {"flash_attention"}),
+    ("recurrentgemma-2b", "prefill_32k", {"rglru", "flash_attention"}),
+    ("xlstm-125m", "prefill_32k", {"mlstm"})])
+def test_cuda_clause_sweep_launches_the_kernels(dev, name, shape_name,
+                                                kernels):
+    cfg, shape = get_arch(name).smoke(), get_shape(shape_name).smoke()
+    tuner = ComParTuner(cfg, shape, device=dev, executor="wallclock")
+    tuner.executor.repeats = 1
+    reset_launches()
+    plan, rep = tuner.sweep(["fsdp"], {"kernel": ("plain", "cuda"),
+                                       "block_q": (16,), "mlstm_chunk": (16,)})
+    assert rep.n_done == rep.n_combinations and rep.n_failed == 0
+    assert {k for k, n in LAUNCHES.items() if n} == kernels

@@ -58,7 +58,9 @@ def test_chip_smoke_fails_without_card(probe):
 
 def _entry_points():
     from repro_torch.configs import get_arch, get_shape
+    from repro_torch.core.tuner import ComParTuner
     from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.examples import quickstart
     from repro_torch.launch.serve import default_plan, serve
     from repro_torch.launch.train import train
     from repro_torch.models.model import init_cache, model_specs
@@ -86,6 +88,9 @@ def _entry_points():
         "SyntheticLM": lambda: SyntheticLM(cfg,
                                            get_shape("train_4k").smoke()),
         "launch.train": lambda: train(["--arch", "granite-8b", "--smoke"]),
+        "ComParTuner": lambda: ComParTuner(cfg,
+                                           get_shape("train_4k").smoke()),
+        "examples.quickstart": lambda: quickstart.main(["--smoke"]),
     }
 
 
