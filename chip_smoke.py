@@ -12,11 +12,14 @@ phases (each failure exits non-zero and prints no result line):
             yardstick the port never calls) with CUDA events:
             flash-attention at granite-8b's heads (H 32, KV 8, D 128), at
             recurrentgemma-2b's (H 10, KV 1, D 256, window 2048, also at
-            S=4096 > window) and at stablelm-3b's (H 32, KV 32, D 80), f32
-            (the FMA route) and bf16 (the wgmma route), with TFLOP/s,
-            against ``scaled_dot_product_attention``; flash-decode at
-            granite-8b's heads (B=1 at pos 0, 17, 63 and 4095; B=8 at pos
-            4095) and at recurrentgemma-2b's (G=10, D=256), with the CUDA
+            S=4096 > window), at stablelm-3b's (H 32, KV 32, D 80), at
+            qwen3-moe-30b-a3b's (H 32, KV 4, D 128) and at kimi-k2-1t-a32b's
+            (H 64, KV 8, D 112), f32 (the FMA route) and bf16 (the wgmma
+            route), with TFLOP/s, against
+            ``scaled_dot_product_attention``; flash-decode at granite-8b's
+            heads (B=1 at pos 0, 17, 63 and 4095; B=8 at pos 4095), at
+            recurrentgemma-2b's (G=10, D=256) and at the two MoE archs'
+            heads (B=1, pos 63), with the CUDA
             kernels of one call (one) and the kernel's plan (heads per CTA,
             slices, CTAs per slice); rglru at (1, 2048, 2560), an odd S,
             S=4096 and slow decay (log_a ~ -1e-4), with the device work of
@@ -61,6 +64,26 @@ phases (each failure exits non-zero and prints no result line):
             in a recycled slot gives the same stream; for recurrentgemma,
             decode past the window held to the forward in f32 (one group);
             then the same profile of decode steps as the trace phase.
+  prefill-moe — every earlier model's weights freed; qwen3-moe-30b-a3b at
+            full width and depth (48 attn_moe layers, 128 experts top-8,
+            30.53 B parameters, 56.9 GiB in bf16), seeded random weights,
+            ``make_prefill`` at B=1, S=2048, ``"cuda"`` plan: wall ms, peak
+            memory, finite logits, exactly 48 flash-attention launches, and
+            the share of (token, slot) assignments dropped at capacity
+            C=160; then cut to 2 layers (views), the ``"cuda"`` plan
+            against the ``"plain"`` plan (see MOE_AGREE_MIN): bf16, the
+            expert-set agreement and the logits with the plain plan's
+            routing replayed; f32 (a cast copy), pointwise.  Then
+            kimi-k2-1t-a32b at full width cut to its dense layer and one
+            MoE layer (head_dim 112, 384 experts), B=1, S=1024: 2
+            flash-attention launches, the same bf16 comparison, and f32 at
+            the dense layer.
+  serve-moe — ``ServeEngine`` on qwen3-moe-30b-a3b at full depth
+            (capacity 8, cache_len 2048, ``"cuda"`` plan), 8 seeded
+            requests of 12-20 prompt tokens and 16 new: every request
+            completes, batched == sequential token for token, flash-decode
+            launches == 48 x prompt tokens; then the profile of decode
+            steps.
   train   — the training path, ``"cuda"`` plans, seeded random weights,
             ``SyntheticLM`` batches: granite-8b at full width cut to 8
             layers (bf16, f32 AdamW state, B=1, S=4096, remat="dots"):
@@ -73,7 +96,12 @@ phases (each failure exits non-zero and prints no result line):
             and of one AdamW update; recurrentgemma-2b's first group (rec,
             rec, attn) at full width, B=1, S=2048, no remat: the same
             grads gate and two steps (rglru and windowed flash-attention
-            at D=256); xlstm-125m at full width and depth through
+            at D=256); qwen3-moe-30b-a3b at full width cut to 2 layers,
+            B=1, S=4096, remat "dots", f32 AdamW state: the grads gate (f32,
+            then bf16; the cuda plan's run replays the plain plan's
+            routing), every leaf's grad > 0, the router's included, then
+            two steps (loss, aux loss, step ms, peak memory, 4
+            flash-attention launches a step); xlstm-125m at full width and depth through
             ``launch/train.py`` (B=8, S=512, a "cuda" plan file, remat
             "dots"): 6 steps straight, then 3, a restart from the latest
             checkpoint and 3 more, whose losses must equal the straight
@@ -122,7 +150,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 PHASES = ("build", "kernels", "prefill", "serve", "trace",
-          "prefill-recurrent", "serve-recurrent", "train", "sweep")
+          "prefill-recurrent", "serve-recurrent", "prefill-moe", "serve-moe",
+          "train", "sweep")
 RECURRENT = ("recurrentgemma-2b", "xlstm-125m")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): memory rate, bf16 tensor-core
@@ -181,6 +210,23 @@ TRAIN_XLSTM_B, TRAIN_XLSTM_S, TRAIN_XLSTM_STEPS = 8, 512, 6
 # rounds p to bf16; one bf16 ulp is 2^-8 relative), and the grads follow:
 # 0.1.  A dropped gradient reads 1.0.
 TRAIN_GRAD_REL_L2 = {"float32": 1e-4, "bfloat16": 0.1}
+# MoE (qwen3-moe-30b-a3b, kimi-k2-1t-a32b).  Routing: a one-ulp change of
+# a hidden state can swap a near-tie of the router's top-k, which changes
+# that token's FFN output by O(1), so the "cuda" and "plain" plans are
+# compared in two readings: the share of (token, layer) pairs whose
+# expert sets agree (held to MOE_AGREE_MIN in bf16), and the logits with
+# the plain plan's routing replayed in the cuda plan's run (held
+# pointwise: bf16 at the granite 2-layer tolerance; f32 at
+# MOE_F32_ATOL_PER_STD of the logits' std, rtol the f32 kernel floor, as
+# the xlstm f32 gate).  The f32 comparison runs without replay.
+MOE, KIMI = "qwen3-moe-30b-a3b", "kimi-k2-1t-a32b"
+MOE_S, KIMI_S = 2048, 1024            # prefill-moe sequences, B=1
+MOE_AGREE_MIN = 0.9
+MOE_F32_ATOL_PER_STD, MOE_F32_RTOL = 1e-3, 2e-5
+# serve-moe: 8 requests of 12-20 prompt tokens and 16 new (each decode
+# step reads every expert's weights: ~58 GB, >= 17 ms at 3.35 TB/s)
+SERVE_MOE_N, SERVE_MOE_PROMPT, SERVE_MOE_NEW = 8, (12, 20), 16
+TRAIN_MOE_LAYERS, TRAIN_MOE_S = 2, 4096
 # sweep: the allocated memory a sweep may leave behind, and
 # recurrentgemma-2b's prefill sweep (B=1, its prefill-recurrent sequence)
 SWEEP_MEMORY_SLACK = 64 * 2**20
@@ -505,6 +551,9 @@ def phase_kernels(torch, state):
     _fa_checks(torch, rand, rows, failures, 10, 1, 256,
                ((2048, 2048), (4096, 2048)))
     _fa_checks(torch, rand, rows, failures, 32, 32, 80, ((2048, 0),))
+    # qwen3-moe-30b-a3b's heads (G=8) and kimi-k2-1t-a32b's (D=112)
+    _fa_checks(torch, rand, rows, failures, 32, 4, 128, ((2048, 0),))
+    _fa_checks(torch, rand, rows, failures, 64, 8, 112, ((2048, 0),))
 
     # flash decode at granite-8b's heads (admission is B=1, pos ~63; long
     # caches at B=1 and 8) and at recurrentgemma-2b's (G=10, D=256)
@@ -513,6 +562,9 @@ def phase_kernels(torch, state):
                 (8, 4096, 4095), (1, 2048, 63)))
     _fd_checks(torch, rand, rows, failures, 10, 1, 256,
                ((1, 2048, 63), (1, 2048, 2047)))
+    # admission of qwen3-moe-30b-a3b (G=8) and kimi-k2-1t-a32b (D=112)
+    _fd_checks(torch, rand, rows, failures, 32, 4, 128, ((1, 2048, 63),))
+    _fd_checks(torch, rand, rows, failures, 64, 8, 112, ((1, 2048, 63),))
 
     # the two-shard LSE combine a sequence-sharded decode relies on
     for name, dt in dts.items():
@@ -900,13 +952,16 @@ def _trace_decode(torch, cfg, params):
         kernels = device_events(prof)
         busy = sum(dev(a) for a in kernels) / 3 / 1e6  # us -> s per step
         both = sum(dev(a) for a in avgs) / 3 / 1e6
+        launch_calls = sum(a.count for a in avgs
+                           if a.key == "cudaLaunchKernel") / 3
         top_dev = sorted(kernels, key=dev, reverse=True)[:8]
         top_cpu = sorted(avgs, key=lambda a: a.self_cpu_time_total,
                          reverse=True)[:8]
         log(f"trace {cfg.name} {label}: {wall * 1e3:.2f} ms/step wall, "
             f"device busy {busy * 1e3:.2f} ms (idle share "
             f"{1 - busy / wall:.3f}; the sum over every event, kernels "
-            f"and the ops that launched them, reads {both * 1e3:.2f} ms)")
+            f"and the ops that launched them, reads {both * 1e3:.2f} ms); "
+            f"{launch_calls:.0f} cudaLaunchKernel calls a step")
         for a in top_dev:
             log(f"  device {dev(a) / 3e3:8.3f} ms/step  x{a.count // 3:<5d} "
                 f"{a.key[:70]}")
@@ -1222,6 +1277,304 @@ def _check_window_wrap(torch, cfg, params):
                            f"with the forward")
 
 
+# --- MoE -----------------------------------------------------------------------
+
+def _free_params(torch, state):
+    """Drop every model's weights before the next model loads."""
+    state.get("params", {}).clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"weights freed; allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+
+@contextlib.contextmanager
+def _routes(mode=None, store=None):
+    """Each MoE layer's routing through ``models.moe.route``, in call
+    order: ``"record"`` appends every call's expert ids to ``store``;
+    ``"replay"`` makes every call take ``store``'s ids in turn (gates from
+    this run's probabilities at those experts, normalized as the router
+    does), so that two plans route alike and differ only by their
+    kernels."""
+    from repro_torch.models import moe
+    route = moe.route
+    replay = iter(store) if mode == "replay" else None
+
+    def wrapped(router, xf, k):
+        probs, gates, idx = route(router, xf, k)
+        if mode == "record":
+            store.append(idx.clone())
+        elif mode == "replay":
+            idx = next(replay)
+            gates = probs.gather(-1, idx)
+            gates = gates / gates.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+        return probs, gates, idx
+    moe.route = wrapped
+    try:
+        yield store
+    finally:
+        moe.route = route
+
+
+def _agreement(torch, a, b):
+    """Per layer, the share of tokens whose expert sets agree between two
+    recorded routings, and the tokens that agree in every layer."""
+    same = torch.stack([(x.sort(-1).values == y.sort(-1).values).all(-1)
+                        .reshape(-1) for x, y in zip(a, b)])
+    return [round(float(v), 6) for v in same.float().mean(1)], same.all(0)
+
+
+def _drop_share(torch, cfg, routes):
+    """The share of (token, slot) assignments past their expert's capacity
+    C, per layer, of a recorded routing (one group: meshless)."""
+    from repro_torch.models.moe import capacity
+    out = []
+    for idx in routes:
+        T, k = idx.numel() // idx.shape[-1], idx.shape[-1]
+        C = capacity(cfg, T)
+        counts = torch.bincount(idx.reshape(-1), minlength=cfg.num_experts)
+        out.append(float((counts - C).clamp_min(0).sum()) / (T * k))
+    return C, out
+
+
+def _prefill_once(torch, cfg, params, tokens, label, want_fa):
+    """``make_prefill`` under the "cuda" plan (after a warm-up): wall ms,
+    peak memory, finite logits of the right shape and exactly ``want_fa``
+    flash-attention launches (and no other kernel)."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.serve.step import make_prefill
+    prefill = make_prefill(cfg, _plans(cfg)["cuda"])
+    prefill(params, {"tokens": tokens[:, :128]})        # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    logits = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    S = tokens.shape[1]
+    finite = bool(torch.isfinite(logits).all())
+    log(f"prefill {label} B=1 S={S}: {dt * 1e3:.1f} ms ({S / dt:.0f} "
+        f"tok/s), peak memory {peak / 2**30:.2f} GiB, logits "
+        f"{tuple(logits.shape)} {logits.dtype} finite={finite}, launches "
+        f"{launches}")
+    if tuple(logits.shape) != (1, S, cfg.vocab_size) or not finite:
+        raise SmokeFailure(f"{label}: prefill logits not finite/shaped")
+    want = {k: want_fa if k == "flash_attention" else 0 for k in launches}
+    if launches != want:
+        raise SmokeFailure(f"{label}: prefill launches {launches}, "
+                           f"expected {want}")
+    return launches, prefill
+
+
+def _profile_prefill(torch, prefill, params, tokens, label):
+    """torch.profiler over one prefill call: wall (under the profiler),
+    device busy, idle share, ``cudaLaunchKernel`` calls and the top device
+    operations."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = device_events(prof)
+    busy = sum(_device_us(a) for a in kernels) / 1e3
+    calls = sum(a.count for a in prof.key_averages()
+                if a.key == "cudaLaunchKernel")
+    log(f"trace prefill {label}: {wall:.2f} ms wall under the profiler, "
+        f"device busy {busy:.2f} ms (idle share {1 - busy / wall:.3f}); "
+        f"{calls} cudaLaunchKernel calls")
+    for a in sorted(kernels, key=_device_us, reverse=True)[:8]:
+        log(f"  device {_device_us(a) / 1e3:8.3f} ms  x{a.count:<5d} "
+            f"{a.key[:70]}")
+
+
+def _compare_moe_plans(torch, cfg, params, tokens, label):
+    """bf16 logits of the "cuda" and "plain" plans (see MOE_AGREE_MIN):
+    the expert-set agreement of the two plans' own routings, the logits'
+    error at the tokens that agree in every layer (a reading), and the
+    logits with the plain plan's routing replayed in the cuda plan's run
+    (the pointwise gate)."""
+    from repro_torch.serve.step import make_prefill
+
+    def run(kernel, mode, store):
+        with _routes(mode, store):
+            return make_prefill(cfg, _plans(cfg)[kernel])(
+                params, {"tokens": tokens})
+    r_plain, r_cuda = [], []
+    plain = run("plain", "record", r_plain)
+    cuda = run("cuda", "record", r_cuda)
+    per_layer, agree = _agreement(torch, r_plain, r_cuda)
+    both = agree.reshape(plain.shape[:2])
+    d_agree = (cuda - plain).abs()[both]
+    forced = run("cuda", "replay", r_plain)
+    diff = (forced - plain).abs()
+    ok = bool(torch.isfinite(forced).all()) and bool(
+        (diff <= PREFILL_ATOL + PREFILL_RTOL * plain.abs()).all())
+    share = min(per_layer)
+    log(f"prefill {label} bf16 cuda vs plain plan: expert sets agree per "
+        f"layer {per_layer} (min {share:.4f}, held >= {MOE_AGREE_MIN}); "
+        f"tokens agreeing in every layer {float(agree.float().mean()):.4f}, "
+        f"max_abs_err there {float(d_agree.max()) if d_agree.numel() else 0:.4g}; "
+        f"with the plain plan's routing replayed: max_abs_err="
+        f"{float(diff.max()):.4g} mean_abs_err={float(diff.mean()):.3g} "
+        f"(atol {PREFILL_ATOL}, rtol {PREFILL_RTOL}) "
+        f"{'ok' if ok and share >= MOE_AGREE_MIN else 'FAIL'}")
+    if not ok or share < MOE_AGREE_MIN:
+        raise SmokeFailure(f"{label}: cuda plan disagrees with plain")
+
+
+def _compare_f32(torch, cfg, params, tokens, label):
+    """The same in f32 on a cast copy, pointwise without replay (see
+    MOE_F32_ATOL_PER_STD); the routing agreement is read beside it."""
+    from repro_torch.models.params import tree_map
+    from repro_torch.serve.step import make_prefill
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params)
+    routes = {}
+    outs = {}
+    for k, plan in _plans(cfg32).items():
+        with _routes("record", routes.setdefault(k, [])):
+            outs[k] = make_prefill(cfg32, plan)(p32, {"tokens": tokens})
+    plain = outs["plain"]
+    std = float(plain.std())
+    atol = MOE_F32_ATOL_PER_STD * std
+    diff = (outs["cuda"] - plain).abs()
+    ok = bool(torch.isfinite(outs["cuda"]).all()) and bool(
+        (diff <= atol + MOE_F32_RTOL * plain.abs()).all())
+    per_layer = _agreement(torch, routes["plain"], routes["cuda"])[0] \
+        if routes["plain"] else "no MoE layer"
+    log(f"prefill {label} f32 cuda vs plain plan: max_abs_err="
+        f"{float(diff.max()):.4g} mean_abs_err={float(diff.mean()):.3g}, "
+        f"logits std {std:.4g} (atol {atol:.4g} = {MOE_F32_ATOL_PER_STD} "
+        f"std, rtol {MOE_F32_RTOL}); expert sets agree per layer "
+        f"{per_layer} {'ok' if ok else 'FAIL'}")
+    del p32, outs
+    if not ok:
+        raise SmokeFailure(f"{label}: f32 cuda plan disagrees with plain")
+
+
+def phase_prefill_moe(torch, state):
+    """qwen3-moe-30b-a3b at full width and depth, then kimi-k2-1t-a32b at
+    full width cut to its dense layer and one MoE layer."""
+    from repro_torch.configs import get_arch
+
+    _free_params(torch, state)
+    cfg = get_arch(MOE)
+    log(f"{MOE}: allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"before the load (56.9 GiB of bf16 weights to come)")
+    params = _params(torch, cfg, state)
+    tokens = torch.randint(0, cfg.vocab_size, (1, MOE_S),
+                           generator=torch.Generator().manual_seed(7)).cuda()
+    launches, prefill = _prefill_once(torch, cfg, params, tokens,
+                                      f"{MOE} {cfg.num_layers} layers",
+                                      cfg.num_layers)
+    state.setdefault("launches", {})[f"prefill {MOE}"] = launches
+    with _routes("record", []) as routes:
+        prefill(params, {"tokens": tokens})
+    C, drops = _drop_share(torch, cfg, routes)
+    log(f"prefill {MOE}: (token, slot) assignments dropped at capacity "
+        f"C={C}: {sum(drops) / len(drops):.5f} of all, per layer "
+        f"{[round(x, 5) for x in drops]}")
+    _profile_prefill(torch, prefill, params, tokens,
+                     f"{MOE} {cfg.num_layers} layers")
+
+    # full width, 2 layers (views): cuda against plain, bf16 and f32
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    p2 = dict(params)
+    p2["g0"] = {"b0": _slice_layers(params["g0"]["b0"], 2)}
+    _compare_moe_plans(torch, cfg2, p2, tokens, f"{MOE} 2 layers")
+    _compare_f32(torch, cfg2, p2, tokens, f"{MOE} 2 layers")
+    del params, p2
+    _free_params(torch, state)
+
+    # kimi-k2: the dense layer and one MoE layer (head_dim 112)
+    kimi = dataclasses.replace(get_arch(KIMI), num_layers=2)
+    params = _params(torch, kimi, state)
+    tokens = torch.randint(0, kimi.vocab_size, (1, KIMI_S),
+                           generator=torch.Generator().manual_seed(7)).cuda()
+    launches, _ = _prefill_once(torch, kimi, params, tokens,
+                                f"{KIMI} 2 layers (attn, attn_moe)", 2)
+    state["launches"][f"prefill {KIMI}"] = launches
+    _compare_moe_plans(torch, kimi, params, tokens, f"{KIMI} 2 layers")
+    # f32 at the dense layer only: the MoE layer in f32 (67.6 GB) does not
+    # fit beside the bf16 weights
+    dense = dataclasses.replace(kimi, num_layers=1, num_experts=0,
+                                experts_per_token=0, first_k_dense=0)
+    _compare_f32(torch, dense, {"embed": params["embed"],
+                                "g0": params["g0"], "head": params["head"]},
+                 tokens, f"{KIMI} dense layer")
+    del params
+    _free_params(torch, state)
+
+
+def _moe_requests(cfg):
+    """SERVE_MOE_N seeded requests of SERVE_MOE_PROMPT prompt tokens."""
+    import numpy as np
+
+    from repro_torch.serve.engine import Request
+    rng = np.random.RandomState(0)
+    lo, hi = SERVE_MOE_PROMPT
+    return [Request(rid=f"r{i}", prompt=tuple(int(t) for t in rng.randint(
+        0, cfg.vocab_size, int(rng.randint(lo, hi + 1)))),
+        max_new_tokens=SERVE_MOE_NEW) for i in range(SERVE_MOE_N)]
+
+
+def phase_serve_moe(torch, state):
+    """``ServeEngine`` on qwen3-moe-30b-a3b at full depth (capacity 8,
+    cache_len 2048, "cuda" plan): every request completes, batched ==
+    sequential token for token (8 slots fit the experts' capacity C=8, so
+    no token is dropped), flash-decode launches == layers x prompt tokens;
+    then the profile of decode steps."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.moe import capacity
+    from repro_torch.serve.engine import ServeEngine
+
+    _free_params(torch, state)
+    cfg = get_arch(MOE)
+    params = _params(torch, cfg, state)
+    eng = ServeEngine(cfg, _plans(cfg)["cuda"], capacity=8, cache_len=2048,
+                      params=params)
+    reqs = _moe_requests(cfg)
+    eng.run(reqs[:1])                                   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    batched = eng.run(reqs)
+    launches = dict(LAUNCHES)
+    st, peak = eng.stats, torch.cuda.max_memory_allocated()
+    state.setdefault("launches", {})[f"serve {MOE}"] = launches
+    log(f"serve {MOE} batched: {st.summary()}")
+    log(f"serve {MOE} batched: prefill {st.prefill_tok_s:.1f} tok/s "
+        f"({st.n_prefill_tokens} tokens in {st.prefill_s:.2f}s), decode "
+        f"{st.decode_tok_s:.1f} tok/s ({st.n_steps} steps in "
+        f"{st.decode_s:.2f}s), peak memory {peak / 2**30:.2f} GiB, "
+        f"launches {launches}; capacity C={capacity(cfg, 8)} for 8 slots")
+    sequential = eng.run(reqs, max_active=1)
+    log(f"serve {MOE} sequential: {eng.stats.summary()}")
+    _check_completed(MOE, reqs, batched)
+    diff = [r.rid for r in reqs
+            if batched[r.rid].tokens != sequential[r.rid].tokens]
+    if diff:
+        raise SmokeFailure(f"{MOE}: batched streams differ from "
+                           f"sequential: {diff}")
+    log(f"serve {MOE}: {len(reqs)} requests, batched == sequential token "
+        f"for token")
+    prompt_tokens = sum(len(r.prompt) for r in reqs)
+    if launches["flash_decode"] != cfg.num_layers * prompt_tokens:
+        raise SmokeFailure(f"{MOE}: serve launched flash_decode "
+                           f"{launches['flash_decode']} times, expected "
+                           f"{cfg.num_layers * prompt_tokens}")
+    _trace_decode(torch, cfg, params)
+    del eng, params
+    _free_params(torch, state)
+
+
 # --- train ---------------------------------------------------------------------
 
 def _train_plans(cfg, remat):
@@ -1249,16 +1602,21 @@ def _train_data(cfg, seq, batch=1):
 def _grads_gate(torch, label, cfg, plans, params, batch, bound):
     """Step-0 grads of the "cuda" plan against the "plain" plan on the same
     weights and batch: per leaf, the relative L2 error (a dropped gradient
-    reads 1.0) under ``bound``, and every leaf's grad norm > 0."""
+    reads 1.0) under ``bound``, and every leaf's grad norm > 0.  For an
+    MoE arch the cuda plan's run replays the plain plan's routing (see
+    MOE_AGREE_MIN)."""
     from repro_torch.models.model import model_specs
     from repro_torch.models.params import tree_leaves, tree_map_with_path
     from repro_torch.train.step import make_grads
 
-    out = {}
-    for k in ("cuda", "plain"):
+    out, routes = {}, []
+    for k in ("plain", "cuda"):
+        mode = ("record" if k == "plain" else "replay") if cfg.is_moe \
+            else None
         t0 = time.perf_counter()
-        loss, _, grads = make_grads(cfg, plans[k], device="cuda")(params,
-                                                                  batch)
+        with _routes(mode, routes):
+            loss, _, grads = make_grads(cfg, plans[k], device="cuda")(
+                params, batch)
         torch.cuda.synchronize()
         out[k] = (float(loss), grads, time.perf_counter() - t0)
     paths = tree_leaves(tree_map_with_path(lambda p, _: "/".join(p),
@@ -1292,6 +1650,7 @@ def phase_train(torch, state):
     torch.cuda.empty_cache()
     _train_granite(torch, state)
     _train_recurrentgemma(torch, state)
+    _train_moe(torch, state)
     _train_xlstm(torch, state)
 
 
@@ -1436,6 +1795,65 @@ def _train_recurrentgemma(torch, state):
             not all(math.isfinite(x) for x in losses):
         raise SmokeFailure(f"train recurrentgemma-2b: launches {launches} "
                            f"(expected {want}), losses {losses}")
+    del params, opt
+    torch.cuda.empty_cache()
+
+
+def _train_moe(torch, state):
+    """qwen3-moe-30b-a3b at full width cut to TRAIN_MOE_LAYERS layers, B=1,
+    S=TRAIN_MOE_S, remat "dots": the step-0 grads gate in f32 (the FMA
+    route) and in bf16 (f32 AdamW state), then two steps of the "cuda"
+    plan: loss and aux loss, step ms, peak memory, flash-attention launches
+    a step (a forward and a recompute per layer)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    full = get_arch(MOE)
+    n, S = TRAIN_MOE_LAYERS, TRAIN_MOE_S
+    cfg32 = dataclasses.replace(full, num_layers=n, dtype="float32")
+    plans = _train_plans(cfg32, "dots")
+    p32, _ = init_train_state(cfg32, plans["plain"],
+                              torch.Generator().manual_seed(0), "cuda")
+    _grads_gate(torch, f"{MOE} {n} layers f32", cfg32, plans, p32,
+                _train_data(cfg32, S).batch_at(0),
+                TRAIN_GRAD_REL_L2["float32"])
+    del p32
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(full, num_layers=n)
+    plans = _train_plans(cfg, "dots")
+    params, opt = init_train_state(cfg, plans["cuda"],
+                                   torch.Generator().manual_seed(0), "cuda")
+    data = _train_data(cfg, S)
+    _grads_gate(torch, f"{MOE} {n} layers bf16", cfg, plans, params,
+                data.batch_at(0), TRAIN_GRAD_REL_L2["bfloat16"])
+    step = make_train_step(cfg, plans["cuda"], device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, aux, times = [], [], []
+    for i in range(2):
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, data.batch_at(i))
+        losses.append(float(m["total_loss"]))
+        aux.append(float(m["aux_loss"]))
+        times.append(time.perf_counter() - t0)
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    state.setdefault("launches", {})[f"train {MOE}"] = launches
+    fa_per_step = launches["flash_attention"] / 2
+    log(f"train {MOE} {n} layers B=1 S={S}, cuda plan remat=dots: losses "
+        f"{[round(x, 5) for x in losses]} (aux loss "
+        f"{[round(x, 5) for x in aux]}); step ms "
+        f"{[round(t * 1e3, 1) for t in times]} ({S / times[-1]:.0f} tok/s "
+        f"at the second); peak memory {peak / 2**30:.2f} GiB; launches "
+        f"{launches} ({fa_per_step:g} flash-attention a step)")
+    if not all(math.isfinite(x) for x in losses + aux) or \
+            fa_per_step != 2 * n:
+        raise SmokeFailure(f"train {MOE}: losses {losses}, aux {aux}, "
+                           f"{fa_per_step} flash-attention launches a step "
+                           f"(expected {2 * n})")
     del params, opt
     torch.cuda.empty_cache()
 
@@ -1793,11 +2211,13 @@ KERNELS = {
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:66",
                         ("prefill granite-8b", "prefill recurrentgemma-2b",
+                         f"prefill {MOE}", f"prefill {KIMI}",
                          "train granite-8b", "train recurrentgemma-2b",
+                         f"train {MOE}",
                          "sweep granite-8b", "sweep recurrentgemma-2b")),
     "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
                      "src/repro/kernels/flash_decode.py:58",
-                     ("serve granite-8b",)),
+                     ("serve granite-8b", f"serve {MOE}")),
     "rglru": ("src/repro_torch/kernels/csrc/rglru.cu",
               "src/repro/kernels/rglru.py:46",
               ("prefill recurrentgemma-2b", "train recurrentgemma-2b",
@@ -1838,9 +2258,9 @@ def kernels_line(state):
 
     main_rows = {
         "flash_attention": pick("flash_attention", dtype="bfloat16", S=2048,
-                                window=0, D=128),
+                                window=0, D=128, KV=8),
         "flash_decode": pick("flash_decode", dtype="bfloat16", B=1,
-                             Smax=2048, pos=63, H=32),
+                             Smax=2048, pos=63, H=32, KV=8),
         "rglru": pick("rglru", S=2048, decay="model"),
         "mlstm": pick("mlstm", S=2048),
         "rmsnorm": pick("rmsnorm", dtype="bfloat16"),
@@ -1867,12 +2287,15 @@ def kernels_line(state):
             entry["at_float32"] = pick("rmsnorm", dtype="float32")
         if name == "flash_decode":
             r = pick_row("flash_decode", dtype="bfloat16", B=1, Smax=2048,
-                         pos=63, H=32)
+                         pos=63, H=32, KV=8)
             entry.update(host_ms=r["host_ms"],
                          cuda_kernels_per_call=r["cuda_kernels_per_call"])
             for key, kw in (("at_B8_pos4095", dict(B=8, pos=4095, H=32)),
                             ("at_B1_pos4095", dict(B=1, pos=4095, H=32)),
-                            ("at_G10_D256", dict(B=1, pos=2047, H=10))):
+                            ("at_G10_D256", dict(B=1, pos=2047, H=10)),
+                            ("at_qwen3_moe", dict(B=1, pos=63, H=32, KV=4)),
+                            ("at_kimi_k2_D112", dict(B=1, pos=63, H=64,
+                                                     D=112))):
                 r = pick_row("flash_decode", dtype="bfloat16", **kw)
                 entry[key] = {k: r[k] for k in NUMBERS + (
                     "host_ms", "plan", "cuda_kernels_per_call")}
@@ -1884,7 +2307,7 @@ def kernels_line(state):
             # the CUDA kernel's own route at these shapes (bf16: wgmma)
             entry["cuda_route"] = pick_row(
                 "flash_attention", dtype="bfloat16", S=2048, window=0,
-                D=128)["cuda_route"]
+                D=128, KV=8)["cuda_route"]
             entry["at_head_dim_256"] = pick(
                 "flash_attention", dtype="bfloat16", S=2048, window=2048,
                 D=256)
@@ -1893,6 +2316,13 @@ def kernels_line(state):
             entry["at_train_S_4096"] = pick(
                 "flash_attention", dtype="bfloat16", S=4096, window=0,
                 D=128)
+            entry["at_qwen3_moe"] = pick(
+                "flash_attention", dtype="bfloat16", S=2048, window=0,
+                D=128, KV=4)
+            entry["at_kimi_k2_D112"] = dict(pick(
+                "flash_attention", dtype="bfloat16", S=2048, D=112),
+                cuda_route=pick_row("flash_attention", dtype="bfloat16",
+                                    D=112)["cuda_route"])
         out.append(entry)
     return {"kernels": out}
 
@@ -1932,6 +2362,8 @@ def main(argv=None) -> int:
                "trace": phase_trace,
                "prefill-recurrent": phase_prefill_recurrent,
                "serve-recurrent": phase_serve_recurrent,
+               "prefill-moe": phase_prefill_moe,
+               "serve-moe": phase_serve_moe,
                "train": phase_train, "sweep": phase_sweep}
     try:
         for name in PHASES:

@@ -1,25 +1,28 @@
 """Architecture registry: ``--arch <id>`` lookup.
 
 Lists only the archs the port can run today: dense ``attn`` stacks with
-full RoPE (granite-8b, stablelm-3b) and the recurrent archs
+full RoPE (granite-8b, stablelm-3b), the recurrent archs
 (recurrentgemma-2b: RG-LRU + local attention; xlstm-125m: mLSTM +
-sLSTM).  Every other arch of the reference registry raises ``KeyError``
-naming the ROADMAP item that brings it.
+sLSTM) and the MoE archs (qwen3-moe-30b-a3b, kimi-k2-1t-a32b:
+``attn_moe`` stacks with sorted dispatch).  Every other arch of the
+reference registry raises ``KeyError`` naming the ROADMAP item that
+brings it.
 """
 from __future__ import annotations
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig, SHAPES
 from repro_torch.configs.granite_8b import CONFIG as _granite
+from repro_torch.configs.kimi_k2_1t_a32b import CONFIG as _kimi
+from repro_torch.configs.qwen3_moe_30b_a3b import CONFIG as _qwen3
 from repro_torch.configs.recurrentgemma_2b import CONFIG as _rg
 from repro_torch.configs.stablelm_3b import CONFIG as _stablelm
 from repro_torch.configs.xlstm_125m import CONFIG as _xlstm
 
-ARCHS = {c.name: c for c in (_granite, _stablelm, _rg, _xlstm)}
+ARCHS = {c.name: c for c in (_granite, _stablelm, _rg, _xlstm, _qwen3,
+                              _kimi)}
 
 #: reference archs the port does not run yet -> the ROADMAP item bringing it
 PENDING = {
-    "qwen3-moe-30b-a3b": "ROADMAP Queue 1 item 3 (MoE archs)",
-    "kimi-k2-1t-a32b": "ROADMAP Queue 1 item 3 (MoE archs)",
     "chatglm3-6b": "ROADMAP Queue 1 item 6 (remaining dense archs)",
     "starcoder2-3b": "ROADMAP Queue 1 item 6 (remaining dense archs)",
     "phi-3-vision-4.2b": "ROADMAP Queue 1 item 6 (remaining dense archs)",

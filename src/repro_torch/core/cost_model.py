@@ -271,14 +271,20 @@ def combo_lower_bound(cfg: ArchConfig, shape: ShapeConfig, segment,
 # --- analytic MODEL_FLOPS (the "useful compute" yardstick) -------------------
 
 def active_params(cfg: ArchConfig) -> int:
-    """Parameters touched per token."""
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE archs are not ported yet: ROADMAP Queue 1 "
-            f"item 3")
+    """Parameters touched per token (MoE: top-k experts only)."""
     from repro_torch.models.model import model_specs
     from repro_torch.models.params import param_count
-    return param_count(model_specs(cfg))
+    total = param_count(model_specs(cfg))
+    if not cfg.is_moe:
+        return total
+    # subtract the inactive expert fraction
+    from repro_torch.models.moe import moe_specs
+    per_layer_expert = sum(
+        math.prod(s.shape) for k, s in moe_specs(cfg).items()
+        if k in ("wi", "wg", "wo"))
+    n_moe_layers = cfg.num_layers - cfg.first_k_dense
+    inactive_frac = 1.0 - cfg.experts_per_token / cfg.num_experts
+    return int(total - n_moe_layers * per_layer_expert * inactive_frac)
 
 
 def model_flops(cfg: ArchConfig, shape: ShapeConfig) -> float:

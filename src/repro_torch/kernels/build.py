@@ -40,7 +40,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: head_dim values the kernels are compiled for (REPRO_DISPATCH_D)
-HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
+HEAD_DIMS = (16, 32, 64, 80, 96, 112, 128, 256)
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
 

@@ -55,6 +55,7 @@ __device__ __forceinline__ void load8(const float* p, float* out) {
     case 64: { constexpr int kD = 64; __VA_ARGS__ } break;   \
     case 80: { constexpr int kD = 80; __VA_ARGS__ } break;   \
     case 96: { constexpr int kD = 96; __VA_ARGS__ } break;   \
+    case 112: { constexpr int kD = 112; __VA_ARGS__ } break; \
     case 128: { constexpr int kD = 128; __VA_ARGS__ } break; \
     case 256: { constexpr int kD = 256; __VA_ARGS__ } break; \
     default: return (int)cudaErrorInvalidValue;           \

@@ -15,8 +15,8 @@
 //
 // Two routes; kernels/flash_attention.py:route picks one with the same rule.
 //
-// "wgmma": bf16 with D in {64, 80, 128, 256} (every head_dim of the archs
-// the port serves).  One CTA per (head, q tile, batch): one producer
+// "wgmma": bf16 with D in {64, 80, 112, 128, 256} (every head_dim of the
+// archs the port serves).  One CTA per (head, q tile, batch): one producer
 // warpgroup, and consumer warpgroups of 64 query rows each, two (BQ = 128)
 // at D <= 128 and one (BQ = 64) at D = 256, where O alone takes 128
 // registers a thread: the 384-thread block's launch budget of 168 registers
@@ -35,8 +35,8 @@
 // O stays in f32 registers and is rescaled by alpha every tile.  The loop
 // is software-pipelined: tile i's Q K^T and tile i-1's P V are issued
 // together, and tile i's softmax runs while P V is on the tensor cores.
-// Shared memory: Q 32 KB + six K/V tiles of 32 KB (D=80 is held 128 wide,
-// zero-filled; D=64 half of that).  K tiles wholly above the diagonal or
+// Shared memory: Q 32 KB + six K/V tiles of 32 KB (D=80 and D=112 are
+// held 128 wide, zero-filled; D=64 half of that).  K tiles wholly above the diagonal or
 // outside the window are skipped (exact: the reference leaves (m, l, acc)
 // unchanged there); only tiles that straddle a boundary evaluate the mask.
 // The grid launches the heaviest causal q tiles first, heads fastest, so
@@ -376,6 +376,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 #define FA_F32(i) FA_F8(i), FA_F8(i + 8), FA_F8(i + 16), FA_F8(i + 24)
 #define FA_F40(i) FA_F32(i), FA_F8(i + 32)
+#define FA_F56(i) FA_F40(i), FA_F8(i + 40), FA_F8(i + 48)
 #define FA_F64(i) FA_F32(i), FA_F32(i + 32)
 #define FA_F128(i) FA_F64(i), FA_F64(i + 64)
 
@@ -424,6 +425,24 @@ template <> struct Wgmma<80> {
         "%32, %33, %34, %35, %36, %37, %38, %39"
         "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
         : FA_F40(0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+template <> struct Wgmma<112> {
+  __device__ static void rs(float (&d)[56], const uint32_t (&a)[4],
+                          uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55"
+        "}, {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+        : FA_F56(0)
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
   }
 };
@@ -493,6 +512,7 @@ template <> struct Wgmma<256> {
 #undef FA_F8
 #undef FA_F32
 #undef FA_F40
+#undef FA_F56
 #undef FA_F64
 #undef FA_F128
 
@@ -833,9 +853,9 @@ int repro_flash_attention_fwd(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// The "wgmma" route: bf16, D in {64, 80, 128, 256}.  Strides as above; the
-// b/h/s strides of q, k and v are multiples of 8 elements and the bases
-// 16-byte aligned (TMA's rule; the Python wrapper checks).
+// The "wgmma" route: bf16, D in {64, 80, 112, 128, 256}.  Strides as
+// above; the b/h/s strides of q, k and v are multiples of 8 elements and
+// the bases 16-byte aligned (TMA's rule; the Python wrapper checks).
 int repro_flash_attention_wgmma_fwd(const void* q, const void* k,
                                     const void* v, void* o, int B, int H,
                                     int KV, int Sq, int Sk, int D,
@@ -849,6 +869,7 @@ int repro_flash_attention_wgmma_fwd(const void* q, const void* k,
   switch (D) {
     FA_WGMMA_CASE(64)
     FA_WGMMA_CASE(80)
+    FA_WGMMA_CASE(112)
     FA_WGMMA_CASE(128)
     FA_WGMMA_CASE(256)
   }

@@ -21,8 +21,9 @@ from repro_torch.kernels import build as K
 
 NAME = "flash_attention"
 #: head dims of the wgmma route: every attention arch the port serves
-#: (stablelm-3b 80, granite-8b 128, recurrentgemma-2b 256), and 64
-WGMMA_HEAD_DIMS = (64, 80, 128, 256)
+#: (stablelm-3b 80, kimi-k2 112, granite-8b and qwen3-moe 128,
+#: recurrentgemma-2b 256), and 64
+WGMMA_HEAD_DIMS = (64, 80, 112, 128, 256)
 # q, k, v, o; dtype, B, H, KV, Sq, Sk, D; strides; causal, window, scale;
 # stream
 ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7

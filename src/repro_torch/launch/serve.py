@@ -9,6 +9,14 @@ Usage:
   python -m repro_torch.launch.serve --arch granite-8b --smoke --device cpu
   python -m repro_torch.launch.serve --arch recurrentgemma-2b
   python -m repro_torch.launch.serve --arch xlstm-125m --smoke --device cpu
+  python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b
+  python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --smoke \
+      --device cpu
+
+``--arch`` takes every arch of ``repro_torch.configs.ARCHS``: granite-8b,
+stablelm-3b, recurrentgemma-2b, xlstm-125m, and the MoE archs
+qwen3-moe-30b-a3b (57 GiB of bf16 weights: one H100 holds it) and
+kimi-k2-1t-a32b (1.03 T parameters: no single card holds it).
 """
 from __future__ import annotations
 
@@ -26,7 +34,8 @@ from repro_torch.serve.engine import Request, ServeEngine
 def default_plan(cfg: ArchConfig) -> Plan:
     """The a-priori serving plan, as the reference's ``default_plan`` for
     non-MoE archs at inference shapes: no remat, plain kernels,
-    tensor_par[shard_vocab]."""
+    tensor_par[shard_vocab].  MoE archs take it too: the reference's
+    expert_par provider for them maps nothing without a mesh."""
     return uniform_plan(cfg, "tensor_par", frozenset({"shard_vocab"}),
                         SegmentClause(remat="none", kernel="plain"))
 
@@ -57,7 +66,9 @@ def resolve_plan(cfg, *, plan_path=None, registry_db=None):
 
 def serve(argv=None):
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True,
+                    help="granite-8b, stablelm-3b, recurrentgemma-2b, "
+                         "xlstm-125m, qwen3-moe-30b-a3b or kimi-k2-1t-a32b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4,
                     help="slot capacity (the batch of the decode step)")

@@ -10,6 +10,13 @@ Usage:
   python -m repro_torch.launch.train --arch xlstm-125m --smoke --device cpu
   python -m repro_torch.launch.train --arch xlstm-125m --steps 200 \\
       --plan plan.json
+  python -m repro_torch.launch.train --arch qwen3-moe-30b-a3b --smoke \\
+      --device cpu
+
+Every arch of ``repro_torch.configs.ARCHS`` trains, the MoE archs
+included (their loss adds the routers' load-balancing loss).
+qwen3-moe-30b-a3b at full depth with f32 AdamW state needs ~366 GB: on
+one card, train it cut in depth.
 """
 from __future__ import annotations
 
@@ -37,7 +44,9 @@ def default_plan(cfg: ArchConfig, shape: ShapeConfig) -> Plan:
     ``launch/dryrun.py:default_plan`` for non-MoE archs: at train shapes
     hybrid2d[shard_vocab] with ``remat="dots"``, plain kernels and f32
     optimizer state; at inference shapes tensor_par[shard_vocab], no
-    remat."""
+    remat.  MoE archs take it too (the reference's expert_par provider
+    maps nothing without a mesh; its bf16 optimizer state for them is
+    not taken: pass a ``--plan`` to change the state's dtype)."""
     if shape.kind == "train":
         return uniform_plan(cfg, "hybrid2d", frozenset({"shard_vocab"}),
                             SegmentClause(remat="dots", kernel="plain"),
@@ -65,7 +74,9 @@ class Heartbeat:
 
 def train(argv=None):
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True,
+                    help="granite-8b, stablelm-3b, recurrentgemma-2b, "
+                         "xlstm-125m, qwen3-moe-30b-a3b or kimi-k2-1t-a32b")
     ap.add_argument("--shape", default="train_4k")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config + shape (CPU-runnable)")

@@ -7,7 +7,9 @@ clause so plan JSON round-trips between the two packages; ``kernel`` takes
 ``repro_torch.kernels``).
 
 ``ModelContext`` has no sharding rules and no interpret flag: this port is
-meshless so far, and a CUDA kernel has no interpret mode.
+meshless so far, and a CUDA kernel has no interpret mode.  ``moe_groups``
+is the reference's GShard dispatch-group count; meshless it is 1, as the
+reference's ``dp_shards(None)``.
 """
 from __future__ import annotations
 
@@ -44,6 +46,7 @@ class SegmentClause:
 @dataclass(frozen=True)
 class ModelContext:
     clause: SegmentClause = SegmentClause()
+    moe_groups: int = 1          # GShard-style dispatch groups
     decode: bool = False
 
     def with_(self, **kw) -> "ModelContext":

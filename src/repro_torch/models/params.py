@@ -8,6 +8,7 @@ leading dim of a scan group's stacked leaves.
 from __future__ import annotations
 
 import dataclasses
+import math
 import zlib
 from dataclasses import dataclass
 from typing import Callable, NamedTuple, Optional, Tuple
@@ -18,6 +19,10 @@ from repro_torch.device import resolve_device
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
+
+#: the most elements ``init_params`` draws at once (its f32 temporary:
+#: 4 GiB); larger draws go in slices along their first axis
+MAX_DRAW = 2 ** 30
 
 
 @dataclass(frozen=True)
@@ -95,7 +100,9 @@ def init_params(specs, generator: torch.Generator, device="cuda"):
     Each leaf draws from its own generator, seeded from
     ``generator.initial_seed()`` and the leaf's path, on the target device.
     Stacked leaves are drawn one layer slice at a time, so a full-width
-    stack never needs an f32 copy of the whole leaf.
+    stack never needs an f32 copy of the whole leaf, and a draw of more
+    than ``MAX_DRAW`` elements (kimi-k2's embedding and expert leaves) in
+    consecutive slices along its first axis.
     """
     dev = resolve_device(device)
     root = generator.initial_seed()
@@ -108,10 +115,20 @@ def init_params(specs, generator: torch.Generator, device="cuda"):
         g = torch.Generator(device=dev)
         g.manual_seed(leaf_seed(root, path))
 
-        def draw(shape):
+        def draw_once(shape):
             x = torch.randn(shape, generator=g, device=dev,
                             dtype=torch.float32)
             return x.mul_(spec.scale).to(spec.tdtype)
+
+        def draw(shape):
+            if math.prod(shape) <= MAX_DRAW:
+                return draw_once(shape)
+            out = torch.empty(shape, dtype=spec.tdtype, device=dev)
+            rows = max(1, MAX_DRAW // math.prod(shape[1:]))
+            for i in range(0, shape[0], rows):
+                n = min(rows, shape[0] - i)
+                out[i:i + n] = draw_once((n,) + tuple(shape[1:]))
+            return out
 
         if spec.logical_axes[0] != "layers":
             return draw(spec.shape)
@@ -129,6 +146,5 @@ def stack_specs(specs, n: int):
 
 
 def param_count(specs) -> int:
-    import math
     return sum(math.prod(s.shape) for s in tree_leaves(specs))
 

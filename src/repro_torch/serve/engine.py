@@ -18,9 +18,21 @@ occupancy.  A request's token stream in a continuously batched run is
 therefore byte-identical to the same request served alone, and
 ``run(requests, max_active=1)`` is the sequential baseline on the very
 same step.
+
+**MoE archs.**  An MoE FFN routes the batch's tokens together, and a
+token past its expert's capacity ``C`` is dropped, so in general a row
+depends on its neighbours (the engine logs the reference's warning).
+Without a mesh the contract still holds whenever the batch's tokens fit
+every expert's capacity, that is when the slot count is at most
+``C = capacity(cfg, slots)``: a token's top-k experts are distinct, so no
+expert receives more than ``slots`` tokens, none is dropped, and the
+combine sums each row's own terms in a fixed order (no atomics).  For
+qwen3-moe-30b-a3b at 8 slots, C = max(8, min(int(1.25 * 8 * 8 / 128), 8))
+= 8; admission (one row) always fits.
 """
 from __future__ import annotations
 
+import logging
 import time
 from collections import deque
 from dataclasses import dataclass
@@ -32,10 +44,12 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.plan import Plan
 from repro_torch.device import resolve_device
-from repro_torch.models.blocks import block_cache_spec
+from repro_torch.models.blocks import ATTN_KINDS, block_cache_spec
 from repro_torch.models.model import init_cache, model_specs
 from repro_torch.models.params import init_params, tree_map
 from repro_torch.serve.step import make_decode_step, make_prefill_cache
+
+log = logging.getLogger("repro_torch.serve")
 
 
 @dataclass(frozen=True)
@@ -162,6 +176,12 @@ class ServeEngine:
                  cache_len: int = 64, params=None, seed: int = 0,
                  device="cuda"):
         self.device = resolve_device(device)
+        if cfg.is_moe:
+            log.warning(
+                "%s is MoE: expert routing mixes rows across the batch, "
+                "so the batched-equals-sequential byte-identity contract "
+                "does not hold (streams may differ by routing pressure)",
+                cfg.name)
         self.cfg, self.plan = cfg, plan
         self.capacity, self.cache_len = int(capacity), int(cache_len)
         self._step = make_decode_step(cfg, plan, device=self.device)
@@ -174,8 +194,8 @@ class ServeEngine:
         self._axes = cache_batch_axes(cfg)
         # only full-causal KV caches bound a request's length; windowed
         # caches ring-wrap and recurrent state has no length
-        self._bounded_cache = not cfg.window_size and "attn" in \
-            cfg.block_kinds()
+        self._bounded_cache = not cfg.window_size and any(
+            k in ATTN_KINDS for k in cfg.block_kinds())
         self.stats = ServeStats(capacity=self.capacity)
 
     # ------------------------------------------------------------------

@@ -62,11 +62,13 @@ def _close(got, want, dtype):
     # shorter than one tile
     (1, 1000, 8, 2, 128), (1, 2047, 4, 4, 80), (1, 2047, 10, 1, 256),
     (1, 1, 8, 2, 128), (1, 1, 4, 4, 80), (1, 1, 10, 1, 256),
-    (1, 65, 8, 2, 128), (2, 65, 10, 1, 256), (1, 1000, 8, 2, 80)])
+    (1, 65, 8, 2, 128), (2, 65, 10, 1, 256), (1, 1000, 8, 2, 80),
+    # kimi-k2's head_dim 112 (G = 8), qwen3-moe's G = 8 at D = 128
+    (1, 300, 16, 2, 112), (1, 1, 8, 1, 112), (1, 1000, 32, 4, 128)])
 @pytest.mark.parametrize("window", [0, 48])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_cuda_vs_plain(dev, B, S, H, KV, D, window, dtype):
-    if dtype == torch.bfloat16 and D in (80, 128, 256):
+    if dtype == torch.bfloat16 and D in (80, 112, 128, 256):
         assert fa_route(dtype, D) == "wgmma"
     rng = np.random.default_rng(0)
     q = _t(rng, (B, S, H, D), dtype, dev)
@@ -83,7 +85,7 @@ def test_flash_attention_cuda_vs_plain(dev, B, S, H, KV, D, window, dtype):
 
 @pytest.mark.parametrize("Sq,Sk,window", [(100, 300, 0), (100, 300, 48),
                                            (300, 100, 0)])
-@pytest.mark.parametrize("D", [80, 128, 256])
+@pytest.mark.parametrize("D", [80, 112, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_cuda_sq_ne_sk(dev, Sq, Sk, window, D, dtype):
     """Queries and keys of different lengths, the mask on absolute
@@ -98,7 +100,7 @@ def test_flash_attention_cuda_sq_ne_sk(dev, Sq, Sk, window, D, dtype):
     _close(got, want.transpose(1, 2), dtype)
 
 
-@pytest.mark.parametrize("D", [80, 128, 256])
+@pytest.mark.parametrize("D", [80, 112, 128, 256])
 @pytest.mark.parametrize("window", [0, 48])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_cuda_non_causal(dev, D, window, dtype):
@@ -114,7 +116,7 @@ def test_flash_attention_cuda_non_causal(dev, D, window, dtype):
     _close(got, want.transpose(1, 2), dtype)
 
 
-@pytest.mark.parametrize("D", [80, 128, 256])
+@pytest.mark.parametrize("D", [80, 112, 128, 256])
 def test_flash_attention_cuda_fused_qkv_views(dev, D):
     """q, k and v as slices of one (B,S,H+2KV,D) projection: model-layout
     views that are not contiguous, read by TMA through their strides."""
@@ -145,7 +147,9 @@ def test_flash_attention_wgmma_rejects_unaligned_strides(dev):
     (1, 129, 4, 4, 80), (1, 300, 8, 1, 256),
     # recurrentgemma-2b's G = 10 (three head slices, several chunks per
     # CTA); granite-8b's heads at Smax 4096 (a cluster of CTAs per kv head)
-    (1, 300, 10, 1, 256), (1, 4096, 32, 8, 128)])
+    (1, 300, 10, 1, 256), (1, 4096, 32, 8, 128),
+    # qwen3-moe's heads (G = 8) and kimi-k2's (D = 112)
+    (1, 2048, 32, 4, 128), (1, 2048, 64, 8, 112)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_decode_cuda_vs_plain(dev, B, Smax, H, KV, D, dtype):
     rng = np.random.default_rng(1)
@@ -412,10 +416,13 @@ def _plan(cfg, kernel):
 
 
 # smoke launches per prefill: granite 2 attn layers; recurrentgemma one
-# rec, rec, attn group; xlstm 3 mlstm + 1 slstm layers
+# rec, rec, attn group; xlstm 3 mlstm + 1 slstm layers; qwen3-moe 2
+# attn_moe layers; kimi-k2 one attn and 2 attn_moe layers
 SMOKE_LAUNCHES = {"granite-8b": {"flash_attention": 2},
                   "recurrentgemma-2b": {"rglru": 2, "flash_attention": 1},
-                  "xlstm-125m": {"mlstm": 3}}
+                  "xlstm-125m": {"mlstm": 3},
+                  "qwen3-moe-30b-a3b": {"flash_attention": 2},
+                  "kimi-k2-1t-a32b": {"flash_attention": 3}}
 
 
 @pytest.mark.parametrize("name", sorted(SMOKE_LAUNCHES))
@@ -446,7 +453,8 @@ def test_engine_cuda_batched_equals_sequential(dev, name):
     batched = eng.run(reqs)
     # admission decodes at a scalar pos: flash-decode in every full-causal
     # attention layer; windowed and recurrent layers decode plain
-    n_fd = 0 if cfg.window_size else cfg.block_kinds().count("attn")
+    n_fd = 0 if cfg.window_size else sum(
+        k in ("attn", "attn_moe") for k in cfg.block_kinds())
     assert LAUNCHES["flash_decode"] == n_fd * sum(len(r.prompt)
                                                   for r in reqs)
     sequential = eng.run(reqs, max_active=1)
@@ -563,6 +571,49 @@ def test_train_grads_cuda_plan_match_plain_plan(dev, dtype):
     for g, w in zip(tree_leaves(cuda), tree_leaves(plain)):
         assert float(g.float().norm()) > 0
         assert _rel_l2(g, w) < GRAD_REL_L2[dtype]
+
+
+def test_moe_train_grads_cuda_plan_match_plain_plan(dev):
+    """qwen3-moe-30b-a3b at full width cut to 2 layers, f32, B=1, S=256:
+    logits and step-0 grads of the "cuda" plan against the "plain" plan,
+    every leaf's grad > 0 (the routers' through the gates and the aux
+    loss), and the same expert choices in both plans."""
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(get_arch("qwen3-moe-30b-a3b"), num_layers=2,
+                              dtype="float32")
+    params, _ = init_train_state(cfg, _plan(cfg, "plain"),
+                                 torch.Generator().manual_seed(0), dev)
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (1, 257))).to(dev)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    routes, route = {}, moe.route
+
+    def run(kernel):
+        def rec(router, xf, k):
+            out = route(router, xf, k)
+            routes.setdefault(kernel, []).append(out[2].clone())
+            return out
+        moe.route = rec
+        try:
+            with torch.no_grad():
+                logits = make_prefill(cfg, _plan(cfg, kernel), device=dev)(
+                    params, {"tokens": batch["tokens"]})
+            return logits, make_grads(cfg, _plan(cfg, kernel),
+                                      device=dev)(params, batch)
+        finally:
+            moe.route = route
+    reset_launches()
+    a, (loss_a, m_a, cuda) = run("cuda")
+    assert LAUNCHES["flash_attention"] == 2 * cfg.num_layers
+    b, (loss_b, m_b, plain) = run("plain")
+    for x, y in zip(routes["cuda"], routes["plain"]):
+        assert torch.equal(x.sort(-1).values, y.sort(-1).values)
+    torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+    assert float(m_a["aux_loss"]) == pytest.approx(float(m_b["aux_loss"]),
+                                                   rel=1e-5)
+    for g, w in zip(tree_leaves(cuda), tree_leaves(plain)):
+        assert float(g.float().norm()) > 0
+        assert _rel_l2(g, w) < GRAD_REL_L2["float32"]
 
 
 @pytest.mark.parametrize("remat,per_step", [("none", 1), ("dots", 2),

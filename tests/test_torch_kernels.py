@@ -86,8 +86,9 @@ def test_flash_attention_route():
     from repro_torch.kernels.build import HEAD_DIMS
     from repro_torch.kernels.flash_attention import WGMMA_HEAD_DIMS, route
     served = {c.head_dim_ for c in ARCHS.values()
-              if "attn" in c.block_kinds()}
-    assert served == {80, 128, 256}   # stablelm-3b, granite-8b, recurrentgemma
+              if {"attn", "attn_moe"} & set(c.block_kinds())}
+    # stablelm-3b, kimi-k2, granite-8b and qwen3-moe, recurrentgemma
+    assert served == {80, 112, 128, 256}
     for D in served:
         assert route(torch.bfloat16, D) == "wgmma"
     for D in HEAD_DIMS:

@@ -109,7 +109,8 @@ JAX_TO_TORCH = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 @pytest.mark.parametrize("name", ["granite-8b", "stablelm-3b",
-                                  "recurrentgemma-2b", "xlstm-125m"])
+                                  "recurrentgemma-2b", "xlstm-125m",
+                                  "qwen3-moe-30b-a3b", "kimi-k2-1t-a32b"])
 def test_param_tree_matches_reference(name):
     jcfg, tcfg = _cfgs(name, "bfloat16")
     jp, tp = _params(jcfg)
@@ -119,7 +120,8 @@ def test_param_tree_matches_reference(name):
     assert sorted(seen) == sorted(flat)
     for path, t in seen.items():
         assert tuple(t.shape) == flat[path].shape, path
-        # bf16 leaves, and the recurrent archs' f32 gate / state weights
+        # bf16 leaves; the recurrent archs' f32 gate / state weights and
+        # the MoE routers are f32
         assert t.dtype == JAX_TO_TORCH[flat[path].dtype.name], path
         np.testing.assert_array_equal(tensor_to_numpy(t),
                                       np.asarray(flat[path], np.float32))
@@ -130,7 +132,8 @@ def test_param_tree_matches_reference(name):
         {k: (tuple(v.shape), v.dtype) for k, v in seen.items()}
 
 
-@pytest.mark.parametrize("name", ["recurrentgemma-2b", "xlstm-125m"])
+@pytest.mark.parametrize("name", ["recurrentgemma-2b", "xlstm-125m",
+                                  "qwen3-moe-30b-a3b", "kimi-k2-1t-a32b"])
 def test_full_config_specs_match_reference(name):
     """At the published widths (no weights made): the same leaves, shapes
     and dtypes, the same cache / state shapes, and the same stack plan."""
@@ -182,24 +185,32 @@ def test_init_params_seeded_and_stable():
     ("recurrentgemma-2b", "float32", "cuda"),
     ("xlstm-125m", "float32", "plain"),
     ("xlstm-125m", "float32", "cuda"),
+    ("qwen3-moe-30b-a3b", "float32", "plain"),
+    ("qwen3-moe-30b-a3b", "float32", "cuda"),
+    ("kimi-k2-1t-a32b", "float32", "plain"),
+    ("kimi-k2-1t-a32b", "float32", "cuda"),
 ])
 def test_forward_logits_match_reference(name, dtype, kernel):
     jcfg, tcfg = _cfgs(name, dtype)
     jp, tp = _params(jcfg)
     jctx, tctx = _ctxs(jcfg, tcfg, kernel)
     toks = np.random.default_rng(1).integers(0, jcfg.vocab_size, (2, 16))
-    jl, _ = JM.forward(jp, {"tokens": jnp.asarray(toks, jnp.int32)}, jcfg,
-                       jctx)
+    jl, jaux = JM.forward(jp, {"tokens": jnp.asarray(toks, jnp.int32)},
+                          jcfg, jctx)
     tl, aux = TM.forward(tp, {"tokens": torch.from_numpy(toks)}, tcfg, tctx)
     assert tl.dtype == torch.float32 and tl.shape == (2, 16, jcfg.vocab_size)
-    assert float(aux) == 0.0
+    # the MoE archs' load-balancing loss; 0 for every other arch
+    assert float(aux) == pytest.approx(float(jaux), rel=1e-5, abs=1e-5)
+    assert (float(aux) > 0) == tcfg.is_moe
     _close(tl, jl, dtype)
 
 
 # --- decode -----------------------------------------------------------------
 
 @pytest.mark.parametrize("name,kernel", [("granite-8b", "cuda"),
-                                         ("stablelm-3b", "plain")])
+                                         ("stablelm-3b", "plain"),
+                                         ("qwen3-moe-30b-a3b", "cuda"),
+                                         ("kimi-k2-1t-a32b", "plain")])
 def test_decode_step_scalar_pos_matches_reference(name, kernel):
     jcfg, tcfg = _cfgs(name)
     jp, tp = _params(jcfg)

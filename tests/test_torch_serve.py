@@ -49,7 +49,8 @@ def _engine(name="granite-8b", kernel="plain", **kw):
 
 @pytest.mark.parametrize("name,kernel", [
     ("granite-8b", "plain"), ("granite-8b", "cuda"),
-    ("recurrentgemma-2b", "cuda"), ("xlstm-125m", "cuda")])
+    ("recurrentgemma-2b", "cuda"), ("xlstm-125m", "cuda"),
+    ("qwen3-moe-30b-a3b", "cuda")])
 def test_engine_batched_equals_sequential_byte_identical(name, kernel):
     eng = _engine(name, kernel=kernel, capacity=4, cache_len=32)
     reqs = _reqs(Request, eng.cfg.vocab_size, 7)
@@ -65,7 +66,7 @@ def test_engine_batched_equals_sequential_byte_identical(name, kernel):
 
 
 @pytest.mark.parametrize("name", ["granite-8b", "recurrentgemma-2b",
-                                  "xlstm-125m"])
+                                  "xlstm-125m", "qwen3-moe-30b-a3b"])
 def test_engine_streams_match_reference_engine(name):
     """Same f32 smoke weights, same seeded requests: the port's engine
     emits the reference engine's token streams."""
@@ -180,8 +181,10 @@ def test_arch_registry_names_pending_roadmap_items():
     assert get_arch("stablelm-3b-smoke").norm == "layernorm"
     assert get_arch("xlstm-125m").block_kinds().count("mlstm") == 9
     assert get_arch("recurrentgemma-2b-smoke").head_dim == 16
-    with pytest.raises(KeyError, match="ROADMAP Queue 1 item 3"):
-        get_arch("qwen3-moe-30b-a3b")
+    assert get_arch("qwen3-moe-30b-a3b").num_experts == 128
+    assert get_arch("kimi-k2-1t-a32b-smoke").first_k_dense == 1
+    with pytest.raises(KeyError, match="ROADMAP Queue 1 item 6"):
+        get_arch("chatglm3-6b")
     with pytest.raises(KeyError, match="unknown arch"):
         get_arch("nope")
     with pytest.raises(ValueError, match="kernel"):
@@ -189,7 +192,7 @@ def test_arch_registry_names_pending_roadmap_items():
 
 
 @pytest.mark.parametrize("arch", ["granite-8b", "recurrentgemma-2b",
-                                  "xlstm-125m"])
+                                  "xlstm-125m", "qwen3-moe-30b-a3b"])
 def test_cli_serves_on_cpu(capsys, arch):
     done = serve(["--arch", arch, "--smoke", "--device", "cpu",
                   "--requests", "2", "--tokens", "3", "--cache-len", "16"])

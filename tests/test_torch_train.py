@@ -303,11 +303,14 @@ def _assert_grads_close(got, want):
     ("granite-8b", "cuda", "none", 2),
     ("recurrentgemma-2b", "cuda", "dots", 1),
     ("xlstm-125m", "cuda", "full", 1),
+    ("qwen3-moe-30b-a3b", "cuda", "dots", 1),
+    ("kimi-k2-1t-a32b", "cuda", "none", 1),
 ])
 def test_train_step_matches_reference(name, kernel, remat, mb):
     """N_STEPS of ``make_train_step`` against ``jit_train_step`` (f32 smoke
-    config, the reference's batches): the loss curve, the grad norms, the
-    step-0 grads (mb = 1) and the parameters at the end."""
+    config, the reference's batches): the loss curve, the MoE aux loss, the
+    grad norms, the step-0 grads (mb = 1) and the parameters at the
+    end."""
     jcfg, tcfg, jplan, tplan = _train_setup(name, kernel, remat, mb)
     batches = _ref_batches(jcfg)
     jp = _ref_params(name)
@@ -322,7 +325,7 @@ def test_train_step_matches_reference(name, kernel, remat, mb):
                             warmup=WARMUP)
     js = JA.adamw_init(jp)
     ts = TA.adamw_init(tp)
-    jl, tl, jn, tn, lrs = [], [], [], [], []
+    jl, tl, jn, tn, lrs, ja, ta = [], [], [], [], [], [], []
     for b in batches:
         jp, js, jm = jstep(jp, js, jax.tree.map(jnp.asarray, b))
         if mb == 1 and not tl:
@@ -339,7 +342,10 @@ def test_train_step_matches_reference(name, kernel, remat, mb):
         jn.append(float(jm["grad_norm"]))
         tn.append(float(tm["grad_norm"]))
         lrs.append(float(tm["lr"]))
+        ja.append(float(jm["aux_loss"]))
+        ta.append(float(tm["aux_loss"]))
     np.testing.assert_allclose(tl, jl, rtol=1e-4)
+    np.testing.assert_allclose(ta, ja, rtol=1e-4)
     np.testing.assert_allclose(tn, jn, rtol=1e-4)
     assert jl[-1] != jl[0]                           # the curve moved
     atol = 2 * N_STEPS * max(lrs)
@@ -356,7 +362,7 @@ def _flat_jax(tree):
 
 
 @pytest.mark.parametrize("name", ["granite-8b", "recurrentgemma-2b",
-                                  "xlstm-125m"])
+                                  "xlstm-125m", "qwen3-moe-30b-a3b"])
 @pytest.mark.parametrize("kernel", ["plain", "cuda"])
 def test_remat_is_exact_on_cpu(name, kernel):
     """remat none, dots and full give the same loss and grads bit for bit
