@@ -17,7 +17,8 @@ phases (each failure exits non-zero and prints no result line):
             (H 64, KV 8, D 112), f32 (the FMA route) and bf16 (the wgmma
             route), with TFLOP/s, against
             ``scaled_dot_product_attention``; flash-decode at granite-8b's
-            heads (B=1 at pos 0, 17, 63 and 4095; B=8 at pos 4095), at
+            heads (B=1 at pos 0, 17, 63 and 4095; B=8 at pos 4095; the
+            tune path's B=8, Smax=2048 at pos 0 and 1024), at
             recurrentgemma-2b's (G=10, D=256) and at the two MoE archs'
             heads (B=1, pos 63), with the CUDA
             kernels of one call (one) and the kernel's plan (heads per CTA,
@@ -125,6 +126,31 @@ phases (each failure exits non-zero and prints no result line):
             once a layer a call, each plain job neither.  C: the dry run
             (fake tensors, H100 constants) over A's space: predicted terms
             beside A's medians, and ``audit_soundness`` clean.
+  tune    — the tuned-plan loop, one JSON line each (``{"tune": ...}``).
+            machine: ``core/machine.py`` ``load_or_calibrate`` with the
+            full CUDA ladder (bf16 and f32 products up to 8192 square, a
+            1 GiB stream), its readings held within (0, 1.05] of the data
+            sheet (989 TFLOP/s bf16, 67 f32, 3.35 TB/s) and bf16 >= 0.3,
+            HBM >= 0.5 of it; a second call loads it from the cache.
+            autotune: ``sweep(kernel_space="auto", kernel_top_k=2)``,
+            wall clock, on granite-8b 8 layers (B=1, S=4096, train),
+            recurrentgemma-2b and xlstm-125m (prefill, S=2048): each op's
+            variant table; each cuda measurement launches its kernel once
+            a call, each plain one none, an op's cuda keys carry one
+            outcome, each fused schedule is among its segment's
+            survivors, no row fails, and a second sweep on the DB times
+            nothing.  calibrated: sweep C with ``machine=`` the profile,
+            predicted / measured beside the constant model's, its cache
+            tag and rows apart from the constant model's.  lint: A's space
+            as a dry run under "warn" and "off" (same rows, byte-identical
+            plan), and under "strict" a microbatches=2 point at B=1 whose
+            rows are settled "static" and launch nothing.  registry:
+            granite-8b at full width and depth swept at its serving shape
+            (capacity 8, cache 2048) with the kernel axis into a registry,
+            then ``launch/serve.py --registry-db`` serves 8 requests
+            (``plan=registry``, batched == sequential, flash-decode 36 x
+            prompt tokens under a cuda plan); a lookup at capacity 4
+            resolves to ``registry~decode:2048x8``.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after.  The last two stdout lines before the final one are the
@@ -151,7 +177,7 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 PHASES = ("build", "kernels", "prefill", "serve", "trace",
           "prefill-recurrent", "serve-recurrent", "prefill-moe", "serve-moe",
-          "train", "sweep")
+          "train", "sweep", "tune")
 RECURRENT = ("recurrentgemma-2b", "xlstm-125m")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): memory rate, bf16 tensor-core
@@ -231,6 +257,22 @@ TRAIN_MOE_LAYERS, TRAIN_MOE_S = 2, 4096
 # recurrentgemma-2b's prefill sweep (B=1, its prefill-recurrent sequence)
 SWEEP_MEMORY_SLACK = 64 * 2**20
 SWEEP_REC_S = 2048
+# tune: the H100 SXM data sheet's rates the calibration is read against;
+# a reading above TUNE_MAX_OVER of them is impossible, and one below
+# TUNE_LEAST of them (bf16, HBM) would mislead the dry run
+TUNE_DATASHEET = {"bfloat16": 989e12, "float32": 67e12, "hbm": 3.35e12}
+TUNE_MAX_OVER = 1.05
+TUNE_LEAST = {"bfloat16": 0.3, "hbm": 0.5}
+# the autotuner's cells: wall-clock repeats, the prefill cells' sequence;
+# the registry cell: granite-8b's serving shape (capacity 8, cache 2048),
+# served 8 requests of ~8 prompt tokens and 8 new
+TUNE_REPEATS, TUNE_PREFILL_S = 3, 2048
+TUNE_SERVE_CAPACITY, TUNE_SERVE_CACHE = 8, 2048
+TUNE_SERVE_N, TUNE_SERVE_PROMPT, TUNE_SERVE_NEW = 8, 8, 8
+# each autotuned op's kernel in LAUNCHES
+TUNE_OP_KERNEL = {"flash_attention": "flash_attention",
+                  "flash_decode": "flash_decode",
+                  "mlstm_chunkwise": "mlstm", "rglru": "rglru"}
 
 
 class SmokeFailure(Exception):
@@ -556,10 +598,13 @@ def phase_kernels(torch, state):
     _fa_checks(torch, rand, rows, failures, 64, 8, 112, ((2048, 0),))
 
     # flash decode at granite-8b's heads (admission is B=1, pos ~63; long
-    # caches at B=1 and 8) and at recurrentgemma-2b's (G=10, D=256)
+    # caches at B=1 and 8; the tune phase's serving shape, B=8 and
+    # Smax=2048, at the autotuner's pos 1024 and the registry sweep's
+    # segment programs' pos 0) and at recurrentgemma-2b's (G=10, D=256)
     _fd_checks(torch, rand, rows, failures, H, KV, D,
                ((1, 4096, 0), (1, 4096, 17), (1, 4096, 4095),
-                (8, 4096, 4095), (1, 2048, 63)))
+                (8, 4096, 4095), (1, 2048, 63), (8, 2048, 0),
+                (8, 2048, 1024)))
     _fd_checks(torch, rand, rows, failures, 10, 1, 256,
                ((1, 2048, 63), (1, 2048, 2047)))
     # admission of qwen3-moe-30b-a3b (G=8) and kimi-k2-1t-a32b (D=112)
@@ -893,6 +938,9 @@ def phase_serve(torch, state):
     log(f"serve sequential: {sst.summary()}")
     prompt_tokens = sum(len(r.prompt) for r in reqs)
     state.setdefault("launches", {})["serve granite-8b"] = launches
+    state["serve granite-8b"] = {"prefill_tok_s": st.prefill_tok_s,
+                                 "decode_tok_s": st.decode_tok_s,
+                                 "peak_gib": peak / 2**30}
     if st.n_completed != len(reqs) or any(
             len(batched[r.rid].tokens) != r.max_new_tokens for r in reqs):
         raise SmokeFailure("not every request completed")
@@ -1929,9 +1977,9 @@ def phase_sweep(torch, state):
         torch.autograd.grad((x @ x).sum(), x)
     del x
     torch.cuda.synchronize()
-    a = _sweep_quickstart(torch, state)
+    a = state["sweep A"] = _sweep_quickstart(torch, state)
     _sweep_recurrentgemma(torch, state)
-    _sweep_dry_run(torch, state, a)
+    state["sweep C"] = _sweep_dry_run(torch, state, a)
 
 
 def _programs(tuner):
@@ -2204,6 +2252,475 @@ def _sweep_dry_run(torch, state, a):
     log(f"sweep C dry run: {rep.summary()}; {'ok' if not fail else 'FAIL'}")
     if fail:
         raise SmokeFailure(f"sweep C: {fail}")
+    return {"tuner": tuner, "plan": plan, "jobs": jobs}
+
+
+def phase_tune(torch, state):
+    """The tuned-plan loop on the card (see the module docstring): a, the
+    machine profile; b, the kernel autotuner on three cells; c, the
+    calibrated dry run; d, the lint; e, a plan swept at granite-8b's
+    serving shape into a registry, then served from it."""
+    import tempfile
+
+    from repro_torch.core.db import SweepDB
+
+    _free_params(torch, state)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tune_") as tmp:
+        db = SweepDB(str(Path(tmp) / "tune.db"))
+        prof = _tune_machine(torch, db)
+        _tune_autotune(torch, state, db)
+        _tune_calibrated(torch, state, prof)
+        _tune_lint(torch, state)
+        _tune_registry(torch, state, db, Path(tmp) / "registry.db")
+        db.conn.close()
+
+
+def _tune_machine(torch, db):
+    """``load_or_calibrate`` with the full CUDA ladder, gated as readings
+    (see TUNE_DATASHEET); a second call must load it from the cache."""
+    from repro_torch.core import machine as M
+
+    t0 = time.perf_counter()
+    prof = M.load_or_calibrate(db)
+    wall = time.perf_counter() - t0
+    calls = []
+    calibrate = M.calibrate
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return calibrate(*a, **kw)
+    M.calibrate = counted
+    try:
+        again = M.load_or_calibrate(db)
+    finally:
+        M.calibrate = calibrate
+    read = {"bfloat16": prof.peak_flops.get("bfloat16", 0.0),
+            "float32": prof.peak_flops.get("float32", 0.0),
+            "hbm": prof.hbm_bw}
+    fail = [f"{k} reads {v:.4g}, outside (0, {TUNE_MAX_OVER} x "
+            f"{TUNE_DATASHEET[k]:.4g}]" for k, v in read.items()
+            if not 0.0 < v <= TUNE_MAX_OVER * TUNE_DATASHEET[k]]
+    for k, least in TUNE_LEAST.items():
+        if read[k] < least * TUNE_DATASHEET[k]:
+            fail.append(f"{k} reads {read[k]:.4g} < {least} x the data "
+                        f"sheet: the profile would mislead the dry run")
+    if calls or again.pid != prof.pid:
+        fail.append(f"the second load_or_calibrate calibrated {len(calls)} "
+                    f"times (pid {again.pid[:8]} vs {prof.pid[:8]})")
+    hw = M.hardware_from_profile(prof)
+    line = {"tune": "machine", "key": prof.key, "pid": prof.pid,
+            "hw": hw.name, "bf16_tflop_s": read["bfloat16"] / 1e12,
+            "f32_tflop_s": read["float32"] / 1e12,
+            "hbm_tb_s": read["hbm"] / 1e12,
+            "of_data_sheet": {k: v / TUNE_DATASHEET[k]
+                              for k, v in read.items()},
+            "calibrated_s": prof.meta["calibrated_s"],
+            "load_or_calibrate_s": wall,
+            "reloaded_without_calibrating": not calls,
+            "meta": prof.meta, "gates_failed": fail}
+    print(json.dumps(line), flush=True)
+    log(f"tune machine: bf16 {line['bf16_tflop_s']:.1f} TFLOP/s, f32 "
+        f"{line['f32_tflop_s']:.1f}, HBM {line['hbm_tb_s']:.3f} TB/s in "
+        f"{prof.meta['calibrated_s']}s; {'ok' if not fail else 'FAIL'}")
+    if fail:
+        raise SmokeFailure(f"tune machine: {fail}")
+    return prof
+
+
+@contextlib.contextmanager
+def _launches_per_variant():
+    """Each autotuner measurement's kernel launches (its warm-up and timed
+    calls), keyed ``op/variant``: every measurement run inside."""
+    import repro_torch.kernels.autotune as AT
+    from repro_torch.kernels import LAUNCHES
+
+    per = {}
+    measure = AT._measure_one
+
+    def counted(op, fields, cfg, shape, executor):
+        n0 = dict(LAUNCHES)
+        try:
+            return measure(op, fields, cfg, shape, executor)
+        finally:
+            per[f"{op}/{AT.schedule_key(fields)}"] = {
+                k: LAUNCHES[k] - n0[k] for k in LAUNCHES}
+    AT._measure_one = counted
+    try:
+        yield per
+    finally:
+        AT._measure_one = measure
+
+
+def _tune_cell(torch, state, db, label, cfg, shape, registry=None):
+    """One wall-clock sweep with ``kernel_space="auto", kernel_top_k=2``
+    (clause space remat none, providers tensor_par and fsdp) and its gates:
+    each cuda measurement launches its kernel once a call and each plain
+    one none; an op's cuda keys carry one outcome; no row or variant
+    fails; each fused schedule is among its segment's survivors; a second
+    sweep on the same DB times nothing.  Returns the fused plan."""
+    import repro_torch.kernels.autotune as AT
+    from repro_torch.core.tuner import ComParTuner
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    kw = dict(providers=["tensor_par", "fsdp"], max_flags=0,
+              clause_space={"remat": ("none",)}, kernel_space="auto",
+              kernel_top_k=2, backend="sequential")
+    tuner = ComParTuner(cfg, shape, device="cuda", db=db,
+                        project=f"tune-{label}", executor="wallclock",
+                        registry=registry)
+    tuner.executor.repeats = TUNE_REPEATS
+    reset_launches()
+    t0 = time.perf_counter()
+    with _launches_per_variant() as per:
+        plan, rep = tuner.sweep(**kw)
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    state.setdefault("launches", {})[f"tune {label}"] = launches
+    tuning = tuner._kernel_tuning
+    fail = []
+    calls = 1 + TUNE_REPEATS                 # the warm-up and the timed
+    for key, got in per.items():
+        op, vkey = key.split("/", 1)
+        want = dict.fromkeys(got, 0)
+        if "kernel=cuda" in vkey.split(","):
+            want[TUNE_OP_KERNEL[op]] = calls
+        if got != want:
+            fail.append(f"{key}: launches {got}, expected {want}")
+    variants = {}
+    for op, res in tuning.variants.items():
+        cuda = {json.dumps({k: e.get(k) for k in ("status", "time_s")})
+                for v, e in res.items() if "kernel=cuda" in v.split(",")}
+        runs = [k for k in per if k.split("/", 1)[0] == op
+                and "kernel=cuda" in k.split("/", 1)[1].split(",")]
+        if len(cuda) != 1 or len(runs) != 1:
+            fail.append(f"{op}: {len(runs)} cuda programs run, "
+                        f"{len(cuda)} cuda outcomes")
+        variants[op] = {v: {"status": e["status"],
+                            "ms": e.get("time_s", 0.0) * 1e3,
+                            "shared": e.get("program", v) != v}
+                        for v, e in res.items()}
+    kt = rep.kernel_tuning
+    if rep.n_failed or kt["n_failed"]:
+        fail.append(f"{rep.n_failed} failed rows, {kt['n_failed']} failed "
+                    f"variants")
+    for seg, keep in tuning.surviving.items():
+        got = AT.clause_schedule(plan.segments[seg].clause,
+                                 tuning.fields[seg])
+        if got not in keep:
+            fail.append(f"{seg}: plan schedule {got} not among the "
+                        f"survivors {sorted(keep)}")
+    again = ComParTuner(cfg, shape, device="cuda", db=db,
+                        project=f"tune-{label}", mode="continue",
+                        executor="wallclock")
+    again.executor.repeats = TUNE_REPEATS
+    with _launches_per_variant() as per2:
+        _, rep2 = again.sweep(**kw)
+    if rep2.kernel_tuning["n_timed"] or per2 or rep2.n_scored:
+        fail.append(f"second sweep timed {rep2.kernel_tuning['n_timed']} "
+                    f"variants ({len(per2)} programs), scored "
+                    f"{rep2.n_scored} rows")
+    line = {"tune": "autotune", "cell": label, "arch": cfg.name,
+            "layers": cfg.num_layers,
+            "shape": [shape.global_batch, shape.seq_len, shape.kind],
+            "variants": variants, "kernel_tuning": kt,
+            "surviving": {k: sorted(v) for k, v in tuning.surviving.items()},
+            "plan": {s: c.label() for s, c in sorted(plan.segments.items())},
+            "n_combinations": rep.n_combinations,
+            "unique_programs": rep.n_scored, "n_failed": rep.n_failed,
+            "programs": _programs(tuner), "static_rules": rep.static_rules,
+            "launches_per_variant": per, "launches": launches,
+            "sweep_s": wall, "again_timed": rep2.kernel_tuning["n_timed"],
+            "gates_failed": fail}
+    print(json.dumps(line), flush=True)
+    log(f"tune autotune {label}: {rep.summary()}; best "
+        f"{kt['per_op_best']}; {wall:.1f}s; {'ok' if not fail else 'FAIL'}")
+    if fail:
+        raise SmokeFailure(f"tune autotune {label}: {fail}")
+    return plan
+
+
+def _tune_autotune(torch, state, db):
+    """The autotuner's train and prefill cells (the serving cell is the
+    registry's sweep)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+
+    cells = [
+        ("granite-8b", dataclasses.replace(get_arch("granite-8b"),
+                                           num_layers=TRAIN_GRANITE_LAYERS),
+         ShapeConfig(f"train-1x{TRAIN_GRANITE_S}", TRAIN_GRANITE_S, 1,
+                     "train")),
+        ("recurrentgemma-2b", get_arch("recurrentgemma-2b"),
+         ShapeConfig(f"prefill-1x{TUNE_PREFILL_S}", TUNE_PREFILL_S, 1,
+                     "prefill")),
+        ("xlstm-125m", get_arch("xlstm-125m"),
+         ShapeConfig(f"prefill-1x{TUNE_PREFILL_S}", TUNE_PREFILL_S, 1,
+                     "prefill")),
+    ]
+    for label, cfg, shape in cells:
+        _tune_cell(torch, state, db, label, cfg, shape)
+        torch.cuda.empty_cache()
+
+
+def _stack_ratios(jobs, measured):
+    """predicted / measured of each stack job (``g*``) measured in both."""
+    return {k: j["predicted_ms"] / measured[k]["median_ms"]
+            for k, j in jobs.items() if k.startswith("g")
+            and measured.get(k, {}).get("median_ms")}
+
+
+def _dry_jobs(tuner):
+    """One row per unique program of a dry-run sweep: predicted ms."""
+    jobs = {}
+    for r in tuner.db.results(tuner.project):
+        cl = r["combo"].clause
+        key = f"{r['segment']}/{cl.remat}/{cl.kernel}"
+        if key not in jobs and r["cost"]:
+            jobs[key] = {"predicted_ms": r["cost"]["total_s"] * 1e3}
+    return jobs
+
+
+def _quickstart_cell():
+    """Sweep A's model, shape and space (``examples/quickstart.py``)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.examples import quickstart
+    cfg = dataclasses.replace(get_arch("granite-8b"),
+                              num_layers=TRAIN_GRANITE_LAYERS)
+    shape = ShapeConfig(f"train-1x{TRAIN_GRANITE_S}", TRAIN_GRANITE_S, 1,
+                        "train")
+    return cfg, shape, quickstart.SPACE, quickstart.PROVIDERS
+
+
+def _tune_calibrated(torch, state, prof):
+    """Sweep C again with ``machine=`` the profile: its predicted /
+    measured against sweep A's medians beside the constant model's, and
+    its cache tag and rows apart from the constant model's in one DB."""
+    from repro_torch.core.tuner import ComParTuner
+
+    cfg, shape, space, providers = _quickstart_cell()
+    kw = dict(providers=providers, clause_space=space, max_flags=1)
+    a = state.get("sweep A")
+    if a is None:        # sweep A has not run: measure its medians here
+        wc = ComParTuner(cfg, shape, device="cuda", executor="wallclock")
+        wc.sweep(backend="sequential", **kw)
+        measured = _programs(wc)
+    else:
+        measured = a["programs"]
+    c = state.get("sweep C")
+    if c is None:        # sweep C has not run: the constant model's here
+        const = ComParTuner(cfg, shape, device="cuda", executor="dryrun")
+        cplan, _ = const.sweep(**kw)
+        c = state["sweep C"] = {"tuner": const, "plan": cplan,
+                                "jobs": _dry_jobs(const)}
+    const, const_jobs = c["tuner"], c["jobs"]
+    cal = ComParTuner(cfg, shape, device="cuda", db=const.db,
+                      project="tune-calibrated", executor="dryrun",
+                      machine=prof)
+    t0 = time.perf_counter()
+    plan, rep = cal.sweep(**kw)
+    wall = time.perf_counter() - t0
+    fail = []
+    try:
+        tight = cal.audit_soundness()
+    except AssertionError as e:
+        tight = None
+        fail.append(str(e))
+    tags = (const.executor.cache_tag, cal.executor.cache_tag)
+    envs = dict(const.db.conn.execute(
+        "SELECT mesh, COUNT(*) FROM score_cache GROUP BY mesh").fetchall())
+    if tags[0] == tags[1] or rep.n_cached or not rep.n_scored or \
+            envs.get(f"local/{tags[1]}") != rep.n_scored or \
+            set(envs) != {f"local/{t}" for t in tags}:
+        fail.append(f"calibrated rows not apart from the constant model's: "
+                    f"tags {tags}, cached {rep.n_cached}, scored "
+                    f"{rep.n_scored}, score_cache {envs}")
+    cal_ratio = _stack_ratios(_dry_jobs(cal), measured)
+    const_ratio = _stack_ratios(const_jobs, measured)
+    line = {"tune": "calibrated", "hw": tags[1], "constant_hw": tags[0],
+            "predicted_over_measured": cal_ratio,
+            "constant_predicted_over_measured": const_ratio,
+            "medians_from": "sweep A" if a is not None else "this phase",
+            "plan": {s: c.label() for s, c in sorted(plan.segments.items())},
+            "bound_tightness": tight, "score_cache_rows": envs,
+            "sweep_s": wall, "gates_failed": fail}
+    print(json.dumps(line), flush=True)
+    log(f"tune calibrated dry run: predicted/measured {cal_ratio} (constant "
+        f"model {const_ratio}); {'ok' if not fail else 'FAIL'}")
+    if fail:
+        raise SmokeFailure(f"tune calibrated: {fail}")
+
+
+def _rows_and_plan(tuner, plan):
+    return ([(r["segment"], r["cid"], r["status"],
+              json.dumps(r["cost"], sort_keys=True))
+             for r in tuner.db.results(tuner.project)],
+            json.dumps(plan.to_json(), sort_keys=True))
+
+
+def _tune_lint(torch, state):
+    """Sweep A's space as a dry run under "warn" (sweep C, the default
+    mode) and "off": the same rows and byte-identical plan JSON; then a
+    wall-clock sweep under "strict" whose microbatches=2 point (B=1) is an
+    error: its rows are settled "static" and launch nothing."""
+    from repro_torch.core.executor import WallClockExecutor
+    from repro_torch.core.tuner import ComParTuner
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    cfg, shape, space, providers = _quickstart_cell()
+    warn = state["sweep C"]
+    off = ComParTuner(cfg, shape, device="cuda", executor="dryrun",
+                      project=warn["tuner"].project)
+    plan, rep = off.sweep(providers=providers, clause_space=space,
+                          max_flags=1, static_checks="off")
+    seen = {"warn": _rows_and_plan(warn["tuner"], warn["plan"]),
+            "off": _rows_and_plan(off, plan)}
+    same = seen["warn"] == seen["off"]
+    fail = [] if same else ["warn and off differ in rows or plan"]
+
+    one = dataclasses.replace(cfg, num_layers=1)
+    strict = ComParTuner(one, shape, device="cuda", executor="wallclock",
+                         project="tune-strict")
+    strict.executor.repeats = TUNE_REPEATS
+    knobs_seen = []
+    score = WallClockExecutor.score_segment
+
+    def counted(self, cfg_, shape_, seg, combo, knobs=None, **k):
+        knobs_seen.append(knobs.microbatches if knobs else 1)
+        return score(self, cfg_, shape_, seg, combo, knobs=knobs, **k)
+    reset_launches()
+    WallClockExecutor.score_segment = counted
+    try:
+        splan, srep = strict.sweep(
+            providers=["fsdp"], max_flags=0, backend="sequential",
+            clause_space={"remat": ("none",), "kernel": ("cuda",)},
+            global_space={"microbatches": (1, 2)}, static_checks="strict")
+    finally:
+        WallClockExecutor.score_segment = score
+    launches = dict(LAUNCHES)
+    state.setdefault("launches", {})["tune lint granite-8b"] = launches
+    rows = strict.db.results(strict.project)
+    mb2 = [r for r in rows if r["knobs"] and r["knobs"].microbatches == 2]
+    want_fa = 1 + TUNE_REPEATS                # one layer, mb=1's stack job
+    if not mb2 or any(r["status"] != "static" for r in mb2) or \
+            srep.n_static != len(mb2) or 2 in knobs_seen or \
+            launches["flash_attention"] != want_fa or \
+            splan.knobs.microbatches != 1 or srep.n_failed:
+        fail.append(f"strict: statuses {[r['status'] for r in mb2]}, "
+                    f"n_static {srep.n_static}, jobs at microbatches "
+                    f"{knobs_seen}, launches {launches} (flash_attention "
+                    f"{want_fa} expected), plan {splan.knobs.key()}")
+    line = {"tune": "lint", "warn_equals_off": same,
+            "rows": len(seen["warn"][0]),
+            "strict_static_rules": srep.static_rules,
+            "strict_n_static": srep.n_static,
+            "strict_jobs_microbatches": knobs_seen,
+            "strict_launches": launches, "gates_failed": fail}
+    print(json.dumps(line), flush=True)
+    log(f"tune lint: warn == off over {len(seen['warn'][0])} rows; strict "
+        f"{srep.summary()}; {'ok' if not fail else 'FAIL'}")
+    if fail:
+        raise SmokeFailure(f"tune lint: {fail}")
+
+
+@contextlib.contextmanager
+def _engine_stats():
+    """The stats of every ``ServeEngine.run`` called inside, in order."""
+    from repro_torch.serve.engine import ServeEngine
+
+    out = []
+    run = ServeEngine.run
+
+    def recorded(self, *a, **kw):
+        try:
+            return run(self, *a, **kw)
+        finally:
+            out.append(self.stats)
+    ServeEngine.run = recorded
+    try:
+        yield out
+    finally:
+        ServeEngine.run = run
+
+
+def _tune_registry(torch, state, db, reg_path):
+    """granite-8b at full width and depth swept at its serving shape with
+    the kernel axis and ``registry=`` a temporary DB, then served by
+    ``launch/serve.py --registry-db`` (batched == sequential), and a
+    lookup at capacity 4 resolved to the nearest registered shape."""
+    import io
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.serve import resolve_plan, serve
+    from repro_torch.serve.registry import PlanRegistry, serving_shape
+
+    cfg = get_arch("granite-8b")
+    shape = serving_shape(TUNE_SERVE_CAPACITY, TUNE_SERVE_CACHE)
+    plan = _tune_cell(torch, state, db, "granite-8b serving", cfg, shape,
+                      registry=str(reg_path))
+    torch.cuda.empty_cache()
+    fail = []
+    entry = PlanRegistry(str(reg_path)).lookup(cfg, shape)
+    if entry is None or not entry.exact or \
+            entry.plan.to_json() != plan.to_json():
+        fail.append(f"registry entry {entry and entry.describe()} is not the "
+                    f"swept plan")
+    argv = ["--arch", cfg.name, "--registry-db", str(reg_path),
+            "--batch", str(TUNE_SERVE_CAPACITY),
+            "--cache-len", str(TUNE_SERVE_CACHE),
+            "--requests", str(TUNE_SERVE_N),
+            "--prompt-len", str(TUNE_SERVE_PROMPT),
+            "--tokens", str(TUNE_SERVE_NEW)]
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with _engine_stats() as stats, contextlib.redirect_stdout(out):
+        batched = serve(argv)
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    state.setdefault("launches", {})["tune serve granite-8b"] = launches
+    with contextlib.redirect_stdout(io.StringIO()):
+        sequential = serve(argv + ["--max-active", "1"])
+    printed = out.getvalue()
+    st = stats[0]
+    kernel = plan.segments["g0"].clause.kernel
+    prompt_tokens = st.n_prefill_tokens
+    want_fd = cfg.num_layers * prompt_tokens if kernel == "cuda" else 0
+    if "plan=registry " not in printed:
+        fail.append(f"serve did not take the registered plan: "
+                    f"{printed.splitlines()[:1]}")
+    if st.n_completed != TUNE_SERVE_N or any(
+            len(c.tokens) != TUNE_SERVE_NEW for c in batched.values()):
+        fail.append("not every request completed")
+    diff = [r for r in batched if batched[r].tokens != sequential[r].tokens]
+    if diff:
+        fail.append(f"batched streams differ from sequential: {diff}")
+    if launches["flash_decode"] != want_fd:
+        fail.append(f"flash_decode {launches['flash_decode']} launches, "
+                    f"expected {want_fd} ({kernel} plan)")
+    _, near = resolve_plan(cfg, serving_shape(4, TUNE_SERVE_CACHE),
+                           registry_db=str(reg_path))
+    if near != f"registry~decode:{TUNE_SERVE_CACHE}x{TUNE_SERVE_CAPACITY}":
+        fail.append(f"lookup at capacity 4 resolved to {near}")
+    line = {"tune": "registry", "arch": cfg.name, "layers": cfg.num_layers,
+            "shape": entry.shape if entry else None,
+            "plan": {s: c.label() for s, c in sorted(plan.segments.items())},
+            "stack_kernel": kernel, "served_from": printed.splitlines()[0],
+            "capacity_4_resolves_to": near,
+            "prefill_tok_s": st.prefill_tok_s,
+            "decode_tok_s": st.decode_tok_s, "peak_gib": peak / 2**30,
+            "serve_phase": state.get("serve granite-8b"),
+            "prompt_tokens": prompt_tokens, "launches": launches,
+            "gates_failed": fail}
+    print(json.dumps(line), flush=True)
+    log(f"tune registry: served {cfg.name} from {line['served_from']!r}: "
+        f"admission {st.prefill_tok_s:.1f} tok/s, decode "
+        f"{st.decode_tok_s:.1f} tok/s, peak {peak / 2**30:.2f} GiB; "
+        f"capacity 4 -> {near}; {'ok' if not fail else 'FAIL'}")
+    if fail:
+        raise SmokeFailure(f"tune registry: {fail}")
 
 
 # kernel -> (source, TPU kernel it replaces, the paths that launch it)
@@ -2214,17 +2731,21 @@ KERNELS = {
                          f"prefill {MOE}", f"prefill {KIMI}",
                          "train granite-8b", "train recurrentgemma-2b",
                          f"train {MOE}",
-                         "sweep granite-8b", "sweep recurrentgemma-2b")),
+                         "sweep granite-8b", "sweep recurrentgemma-2b",
+                         "tune granite-8b", "tune recurrentgemma-2b",
+                         "tune lint granite-8b")),
     "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
                      "src/repro/kernels/flash_decode.py:58",
-                     ("serve granite-8b", f"serve {MOE}")),
+                     ("serve granite-8b", f"serve {MOE}",
+                      "tune granite-8b serving", "tune serve granite-8b")),
     "rglru": ("src/repro_torch/kernels/csrc/rglru.cu",
               "src/repro/kernels/rglru.py:46",
               ("prefill recurrentgemma-2b", "train recurrentgemma-2b",
-               "sweep recurrentgemma-2b")),
+               "sweep recurrentgemma-2b", "tune recurrentgemma-2b")),
     "mlstm": ("src/repro_torch/kernels/csrc/mlstm.cu",
               "src/repro/kernels/mlstm.py:70",
-              ("prefill xlstm-125m", "train xlstm-125m")),
+              ("prefill xlstm-125m", "train xlstm-125m",
+               "tune xlstm-125m")),
     # no model calls rmsnorm (nor does the reference's): no path
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:18", ()),
@@ -2292,6 +2813,8 @@ def kernels_line(state):
                          cuda_kernels_per_call=r["cuda_kernels_per_call"])
             for key, kw in (("at_B8_pos4095", dict(B=8, pos=4095, H=32)),
                             ("at_B1_pos4095", dict(B=1, pos=4095, H=32)),
+                            ("at_tune_B8_pos1024", dict(B=8, Smax=2048,
+                                                        pos=1024, H=32)),
                             ("at_G10_D256", dict(B=1, pos=2047, H=10)),
                             ("at_qwen3_moe", dict(B=1, pos=63, H=32, KV=4)),
                             ("at_kimi_k2_D112", dict(B=1, pos=63, H=64,
@@ -2364,7 +2887,8 @@ def main(argv=None) -> int:
                "serve-recurrent": phase_serve_recurrent,
                "prefill-moe": phase_prefill_moe,
                "serve-moe": phase_serve_moe,
-               "train": phase_train, "sweep": phase_sweep}
+               "train": phase_train, "sweep": phase_sweep,
+               "tune": phase_tune}
     try:
         for name in PHASES:
             if name in phases:

@@ -42,6 +42,28 @@ class Recorder:
                            "status": "invalid", "error": msg})
         self._maybe_flush()
 
+    def static(self, segment: str, cid: str, diags):
+        """Settle a row rejected by the static analyzer (strict mode).
+
+        A ``static`` row never touches ``self._cache``: the rejection is a
+        pre-dispatch verdict of this engine's rule set, not a scored
+        outcome; caching it would let a later (possibly fixed) rule set
+        serve a stale rejection as if the program had failed."""
+        msg = "; ".join(f"{d.rule}: {d.message}" for d in diags)
+        self._rows.append({"segment": segment, "cid": cid,
+                           "status": "static", "error": msg})
+        self._maybe_flush()
+
+    def static_note(self, diags):
+        """Account one row's diagnostics in the per-rule histogram
+        (``SweepReport.static_rules``): once per row per distinct rule,
+        in every mode that lints (strict and warn)."""
+        hist = getattr(self.report, "static_rules", None)
+        if hist is None:
+            return
+        for rule in sorted({d.rule for d in diags}):
+            hist[rule] = hist.get(rule, 0) + 1
+
     def cache_hit(self, group: JobGroup, hit: Dict):
         """Settle a whole group from a persistent-cache entry."""
         self.report.n_cached += len(group.members)

@@ -5,11 +5,10 @@ The stage of the sweep pipeline that runs before any scoring: structural
 grouping (rows that build the same program share one job), black-box
 validation, persistent score-cache resolution (whole groups settled
 without running anything), and lower-bound ordering (cheapest analytic
-bound first, so incumbents tighten early and pruning bites sooner).
-
-The port is meshless and has no static analyzer yet: ``static_checks``
-takes only ``"off"`` (``"warn"``/``"strict"`` need ``analysis/``, ROADMAP
-Queue 1 item 5).
+bound first, so incumbents tighten early and pruning bites sooner).  With a
+static analyzer mode it lints every row first (``repro_torch.analysis``),
+and with the kernel autotuner's verdict each job's bound takes the
+certified kernel flops of its schedule.  The port is meshless.
 """
 from __future__ import annotations
 
@@ -29,14 +28,6 @@ from repro_torch.core.validator import validate_combination
 
 #: statuses that Continue mode treats as settled (no re-run on resume)
 SETTLED = ("done", "failed", "invalid", "pruned", "static")
-
-STATIC_PENDING = ("static_checks={!r}: the static analyzer is not ported "
-                  "yet: ROADMAP Queue 1 item 5 (analysis/*); use 'off'")
-
-
-def check_static_checks(mode: str):
-    if mode != "off":
-        raise NotImplementedError(STATIC_PENDING.format(mode))
 
 
 def shape_key(shape: ShapeConfig) -> str:
@@ -79,9 +70,9 @@ class Scheduler:
                  use_cache: bool = True,
                  shape_key: Optional[str] = None,
                  mesh_key: Optional[str] = None,
+                 kernel_tuning=None,
                  static_checks: str = "off"):
         require_meshless(mesh)
-        check_static_checks(static_checks)
         self.db = db
         self.project = project
         self.cfg = cfg
@@ -90,6 +81,17 @@ class Scheduler:
         self.validate = validate
         self.share_scores = share_scores
         self.use_cache = use_cache
+        # the kernel autotuner's verdict (autotune.KernelTuning): per-
+        # schedule certified kernel flops tighten each job's compute
+        # floor; None = no kernel axis, bounds unchanged
+        self.kernel_tuning = kernel_tuning
+        # static lint mode: "off" (hand-built Schedulers: no lint at
+        # all), "warn" (lint + histogram, every point still dispatched),
+        # "strict" (error-diagnosed rows settled as "static" before they
+        # become JobSpecs: every dropped point provably fails)
+        if static_checks not in ("strict", "warn", "off"):
+            raise ValueError(f"static_checks={static_checks!r}: expected "
+                             f"'strict' | 'warn' | 'off'")
         self.static_checks = static_checks
         # the cache keys the pipeline reads AND writes under — a caller
         # (the tuner) passes one pair so write and read can't desync
@@ -127,6 +129,7 @@ class Scheduler:
 
         # group pending rows by structural program identity
         valid_memo: Dict[str, Tuple[bool, str]] = {}
+        static_memo: Dict[Tuple, list] = {}
         seg_memo = {seg.name: (seg.signature(self.cfg, self.shape),
                                seg.relevant_clause_fields(self.shape.kind),
                                seg.relevant_knob_fields(self.shape.kind))
@@ -146,6 +149,24 @@ class Scheduler:
                         if not ok:
                             recorder.invalid(seg.name, rid, msg)
                             continue
+                    if self.static_checks != "off":
+                        # diagnostics depend only on (segment,
+                        # combination, knob point): one lint per distinct
+                        # tuple, accounted per row
+                        skey = (seg.name, c.cid, kn.kid)
+                        diags = static_memo.get(skey)
+                        if diags is None:
+                            from repro_torch.analysis.rules import \
+                                analyze_point
+                            diags = analyze_point(self.cfg, self.shape, c,
+                                                  knobs=kn, segments=(seg,))
+                            static_memo[skey] = diags
+                        if diags:
+                            recorder.static_note(diags)
+                            errs = [d for d in diags if d.is_error]
+                            if errs and self.static_checks == "strict":
+                                recorder.static(seg.name, rid, errs)
+                                continue
                     ec = effective_cid(c, relevant,
                                        mapping_key(self.cfg, None, c, seg),
                                        kn, rel_knobs)
@@ -171,10 +192,14 @@ class Scheduler:
                             work.incumbents[scope] = t
                 del work.groups[key]
                 continue
+            kflops = self.kernel_tuning.floor_flops(
+                g.seg.name, g.combo.clause) \
+                if self.kernel_tuning is not None else 0.0
             work.jobs.append(JobSpec(
                 key, g.seg, g.combo, segments=tuple(sorted(g.scopes)),
                 bound_s=combo_lower_bound(self.cfg, self.shape, g.seg,
-                                          g.combo, 1, hw, knobs=g.knobs),
+                                          g.combo, 1, hw, knobs=g.knobs,
+                                          kernel_flops=kflops),
                 signature=g.signature, eff_cid=g.eff_cid, knobs=g.knobs))
         recorder.flush()
 

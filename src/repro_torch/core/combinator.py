@@ -180,14 +180,16 @@ def flag_subsets(flags: Sequence[str], max_flags: Optional[int] = None):
     return out
 
 
-def _port_space(space: Dict[str, Tuple]) -> Dict[str, Tuple]:
+def port_space(space: Dict[str, Tuple]) -> Dict[str, Tuple]:
+    """A clause (or kernel) space with its ``kernel`` values in the port's
+    names."""
     if "kernel" not in space:
         return space
     return dict(space, kernel=tuple(port_kernel(k) for k in space["kernel"]))
 
 
 def clause_grid(space: Dict[str, Tuple]) -> List[SegmentClause]:
-    space = _port_space(space)
+    space = port_space(space)
     keys = sorted(space)
     return [SegmentClause(**dict(zip(keys, combo)))
             for combo in itertools.product(*(space[k] for k in keys))]
@@ -230,9 +232,10 @@ class SweepSpec:
     * ``providers`` — provider names to race (the "compilers")
     * ``clauses`` — the directive-clause grid (``clause_space``)
     * ``globals`` — the GlobalKnobs grid (``global_space``)
-    * ``meshes`` and ``kernel_space`` — the reference's topology and
-      kernel-schedule axes; the port takes only ``None`` for them
-      (ROADMAP Queue 1 items 4 and 5)
+    * ``kernel_space`` — the inner kernel-schedule grid (JSON key
+      ``"kernels"``); ``None`` = no inner sweep
+    * ``meshes`` — the reference's topology axis; the port takes only
+      ``None`` (ROADMAP Queue 1 item 4)
 
     :meth:`from_json` pins unlisted clause/global fields to their
     default's first value and maps the reference's kernel names.
@@ -246,15 +249,11 @@ class SweepSpec:
 
     def __post_init__(self):
         require_meshless(self.meshes, "meshes")
-        if self.kernel_space is not None:
-            raise NotImplementedError(
-                "kernel_space: the kernel autotuner is not ported yet: "
-                "ROADMAP Queue 1 item 5 (kernels/autotune.py)")
 
     @classmethod
     def from_json(cls, spec: Dict) -> "SweepSpec":
         providers = tuple(spec.get("providers", {}))
-        clauses = _port_space({k: tuple(v) for k, v in
+        clauses = port_space({k: tuple(v) for k, v in
                                spec.get("clauses", {}).items()})
         for k, v in DEFAULT_CLAUSE_SPACE.items():
             clauses.setdefault(k, (v[0],))
@@ -262,7 +261,8 @@ class SweepSpec:
         for k, v in DEFAULT_GLOBAL_SPACE.items():
             gl.setdefault(k, (v[0],))
         meshes = tuple(spec["meshes"]) if "meshes" in spec else None
-        kernels = {k: tuple(v) for k, v in spec["kernels"].items()} \
+        kernels = port_space({k: tuple(v)
+                              for k, v in spec["kernels"].items()}) \
             if "kernels" in spec else None
         return cls(providers, clauses, gl, meshes, kernels)
 
@@ -272,6 +272,9 @@ class SweepSpec:
             out["clauses"] = {k: list(v) for k, v in self.clauses.items()}
         if self.globals is not None:
             out["globals"] = {k: list(v) for k, v in self.globals.items()}
+        if self.kernel_space is not None:
+            out["kernels"] = {k: list(v)
+                              for k, v in self.kernel_space.items()}
         return out
 
 
@@ -280,9 +283,11 @@ def load_sweep_json(path: str) -> SweepSpec:
 
         {"providers": {"tensor_par": ["shard_vocab"], "fsdp": []},
          "clauses":   {"remat": ["none","dots"], "kernel": ["xla"]},
-         "globals":   {"microbatches": [1,2]}}
+         "globals":   {"microbatches": [1,2]},
+         "kernels":   {"kernel": ["xla","pallas"], "block_k": [512, 1024]}}
 
-    Returns a :class:`SweepSpec` for ``sweep(spec=...)``.
+    ``kernels`` is the inner kernel-schedule grid
+    (``sweep(kernel_space=...)``); absent = no inner sweep.  Returns a :class:`SweepSpec` for ``sweep(spec=...)``.
     """
     with open(path) as f:
         return SweepSpec.from_json(json.load(f))

@@ -3,8 +3,8 @@
 A :class:`Plan` is ComParX's "output program": the sweep fuses one
 (``core/tuner.py``, ``core/fusion.py``), and the step factories apply it.
 Without a mesh there is no provider mapping to resolve, so applying a
-plan gives each segment its clause.  ``Plan.lint`` waits for the static
-analyzer (ROADMAP Queue 1 item 5).
+plan gives each segment its clause.  ``Plan.lint`` certifies a plan with
+the static analyzer (``repro_torch.analysis``).
 """
 from __future__ import annotations
 
@@ -50,6 +50,15 @@ class Plan:
     def load(cls, path: str) -> "Plan":
         with open(path) as f:
             return cls.from_json(json.load(f))
+
+    def lint(self, cfg: ArchConfig, shape, *, trace: bool = True):
+        """Certify this plan against ``(cfg, shape)`` without running it.
+
+        Thin wrapper over :func:`repro_torch.analysis.analyze_plan`:
+        returns the list of ``Diagnostic``; empty means the plan passes
+        every static rule."""
+        from repro_torch.analysis import analyze_plan
+        return analyze_plan(cfg, shape, self, trace=trace)
 
     def describe(self) -> str:
         lines = [f"knobs: {self.knobs.key()}"]

@@ -13,11 +13,16 @@ cheapest-lower-bound-first; the **ScoringBackend** (``thread`` or
 ``sequential``) scores the unique programs; the **Recorder** fans
 outcomes back out to the rows and writes them in batches.
 
+Beside it, as in the reference: the kernel autotuner
+(``sweep(kernel_space=)``, ``kernels/autotune.py``), the static analyzer
+(``static_checks``, ``analysis/``), the calibrated machine model
+(``ComParTuner(machine=)``, ``core/machine.py``) and the plan registry
+(``ComParTuner(registry=)``, ``serve/registry.py``).
+
 The port is meshless, on one device.  What the reference sweeps beyond
 that raises, naming the ROADMAP item that brings it: ``mesh``/
-``mesh_space`` (Queue 1 item 4); ``kernel_space``, ``machine``,
-``registry``, ``remote_url`` and the process/remote backends (item 5).
-``static_checks`` takes only ``"off"`` (the analyzer is item 5 too).
+``mesh_space`` (Queue 1 item 4); ``remote_url`` and the process/remote
+backends (item 5).
 """
 from __future__ import annotations
 
@@ -30,10 +35,10 @@ from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core.backends import (RetryPolicy, Recorder, Scheduler,
                                        drive, env_key, make_backend,
                                        shape_key)
-from repro_torch.core.backends.scheduler import check_static_checks
-from repro_torch.core.combinator import (Combination, GlobalKnobs, SweepSpec,
+from repro_torch.core.combinator import (DEFAULT_CLAUSE_SPACE, Combination,
+                                         GlobalKnobs, SweepSpec,
                                          enumerate_combinations, global_grid,
-                                         paper_combination_count,
+                                         paper_combination_count, port_space,
                                          require_meshless, row_cid,
                                          swept_knob_fields)
 from repro_torch.core.cost_model import H100, CostTerms, combo_lower_bound
@@ -47,13 +52,6 @@ from repro_torch.device import resolve_device
 
 log = logging.getLogger("repro_torch.tuner")
 
-ITEM5 = "ROADMAP Queue 1 item 5 ({})"
-
-
-def _pending(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet: {item}")
-
-
 @dataclass
 class SweepReport:
     project: str
@@ -66,6 +64,8 @@ class SweepReport:
     n_cached: int = 0       # rows served from the persistent score cache
     n_shared: int = 0       # rows that shared an in-run score
     n_transient: int = 0    # rows failed by a deadline (retryable)
+    n_static: int = 0       # rows rejected by the static analyzer before
+                            # dispatch (static_checks="strict")
     n_inapplicable: int = 0  # (segment, combination) pairs dropped because
                              # the provider is inapplicable to the segment
     n_knob_points: int = 1  # GlobalKnobs points swept (the RTL axis)
@@ -75,6 +75,10 @@ class SweepReport:
     #: failure-kind histogram over FAILED rows ("deterministic",
     #: "transient")
     failure_kinds: Dict[str, int] = field(default_factory=dict)
+    #: per-rule histogram over statically diagnosed rows (strict and warn
+    #: modes; one count per row per distinct rule): see
+    #: repro_torch.analysis for the rule ids
+    static_rules: Dict[str, int] = field(default_factory=dict)
     #: the winning knob point's per-segment valid rows
     per_segment: Dict[str, List[Tuple[Combination, CostTerms]]] = \
         field(default_factory=dict)
@@ -83,6 +87,10 @@ class SweepReport:
     #: segment kind -> {"n", "mean", "max"} of bound/measured over done
     #: rows (a ratio > 1 means the certificate broke: audit_soundness)
     bound_tightness: Dict[str, Dict[str, float]] = field(default_factory=dict)
+    #: the inner kernel sweep's observability (``sweep(kernel_space=...)``):
+    #: variants enumerated/timed/cache-hit/failed, top_k, per-op best
+    #: schedule, per-segment kept counts.  None = no kernel axis.
+    kernel_tuning: Optional[Dict] = None
 
     def summary(self) -> str:
         s = (f"project={self.project} knob_points={self.n_knob_points} "
@@ -93,6 +101,12 @@ class SweepReport:
              f"realized={self.n_combinations} "
              f"paper_formula_upper_bound={self.paper_count} "
              f"elapsed={self.elapsed_s:.1f}s")
+        if self.n_static or self.static_rules:
+            s += f" static={self.n_static}"
+            if self.static_rules:
+                rules = ",".join(f"{k}:{v}" for k, v in
+                                 sorted(self.static_rules.items()))
+                s += f"[{rules}]"
         if self.n_inapplicable:
             s += f" inapplicable={self.n_inapplicable}"
         if self.n_transient_retried:
@@ -106,6 +120,11 @@ class SweepReport:
                 f"{k}:mean={v['mean']:.2f}/max={v['max']:.2f}(n={v['n']})"
                 for k, v in sorted(self.bound_tightness.items()))
             s += f" bound_tightness={tight}"
+        if self.kernel_tuning:
+            kt = self.kernel_tuning
+            s += (f" kernel_tuning=variants:{kt['n_variants']},"
+                  f"timed:{kt['n_timed']},cached:{kt['n_cached']},"
+                  f"failed:{kt['n_failed']},top_k:{kt['top_k']}")
         return s
 
 
@@ -125,7 +144,9 @@ class SearchOptions:
     conflict contract as :class:`BackendOptions`."""
     prune: bool = False
     prune_margin: float = 0.1
-    static_checks: str = "off"
+    static_checks: str = "warn"
+    kernel_space: Optional[object] = None   # "auto" | {field: values}
+    kernel_top_k: int = 2
     use_cache: bool = True
     share_scores: bool = True
     record_batch: int = 64
@@ -148,6 +169,19 @@ class ComParTuner:
     ``executor``: ``"dryrun"`` (flops and bytes on fake tensors, over an
     H100's peak rates; no device) or ``"wallclock"`` (medians measured on
     ``device``, ``"cuda"`` unless the caller asks for ``"cpu"``).
+
+    ``machine``: the dry run's hardware model: ``None`` (the H100 data
+    sheet's constants), ``"auto"`` (calibrate ``device`` or load its
+    cached profile from the DB's ``machine_cache``), a ``MachineProfile``
+    or a ``Hardware``.  The calibrated view's name lands in the
+    executor's ``cache_tag``, so calibrated and constant scores never
+    share cache rows; bounds divide by the same view, so pruning stays
+    exact.  The wall clock measures, so it ignores ``machine`` (logged).
+
+    ``registry``: where the fused plan of every ``sweep()`` is registered
+    for the serving side: ``None``/``False`` (off), ``True`` (a
+    ``PlanRegistry`` in this tuner's DB), a ``PlanRegistry``, or a DB
+    path.
     """
 
     def __init__(self, cfg: ArchConfig, shape: ShapeConfig, *,
@@ -157,26 +191,44 @@ class ComParTuner:
                  timeout_s: Optional[float] = 300, mesh=None,
                  machine=None, registry=None):
         require_meshless(mesh)
-        if machine is not None:
-            _pending("machine=", ITEM5.format("core/machine.py"))
-        if registry is not None:
-            _pending("registry=", ITEM5.format("serve/registry.py"))
         self.cfg = cfg
         self.shape = shape
         self.device = resolve_device(device)
+        self.db = db or SweepDB(":memory:")
+        name = project or f"{cfg.name}-{shape.name}"
+        self.project = self.db.open_project(
+            name, mode, {"arch": cfg.name, "shape": shape.name})
         if executor == "dryrun":
-            self.executor = DryRunExecutor(timeout_s=timeout_s)
+            hw = H100
+            if machine is not None:
+                from repro_torch.core.machine import resolve_machine
+                hw = resolve_machine(machine, self.db, device=self.device)
+            self.executor = DryRunExecutor(hw, timeout_s=timeout_s)
         elif executor == "wallclock":
+            if machine is not None:
+                log.warning("machine= ignored: wallclock scores are "
+                            "measured, not modeled")
             self.executor = WallClockExecutor(self.device,
                                               timeout_s=timeout_s)
         else:
             raise ValueError(f"executor={executor!r}; expected 'dryrun' or "
                              f"'wallclock'")
-        self.db = db or SweepDB(":memory:")
-        name = project or f"{cfg.name}-{shape.name}"
-        self.project = self.db.open_project(
-            name, mode, {"arch": cfg.name, "shape": shape.name})
+        self.registry = None
+        if registry is not None and registry is not False:
+            from repro_torch.serve.registry import PlanRegistry
+            if registry is True:
+                self.registry = PlanRegistry(self.db)
+            elif hasattr(registry, "register") and hasattr(registry,
+                                                           "lookup"):
+                # duck-typed, not isinstance: `python -m` runs modules
+                # under __main__, which forks the class object
+                self.registry = registry
+            else:
+                self.registry = PlanRegistry(registry)
         self.validate = validate
+        #: the latest sweep's kernel-autotuner verdict (None = no kernel
+        #: axis): bounds are recomputed with the floors the Scheduler used
+        self._kernel_tuning = None
 
     # ------------------------------------------------------------------
     def sweep(self, providers: Optional[Sequence[str]] = None,
@@ -195,8 +247,8 @@ class ComParTuner:
               fallback: Optional[str] = None,
               retry=None,
               transient_retries: Optional[int] = None,
-              kernel_space=None,
-              static_checks: str = "off",
+              kernel_space=None, kernel_top_k: int = 2,
+              static_checks: str = "warn",
               prune: bool = False, prune_margin: float = 0.1,
               use_cache: bool = True, share_scores: bool = True,
               record_batch: int = 64) -> Tuple[Plan, SweepReport]:
@@ -218,16 +270,32 @@ class ComParTuner:
                           ``workers`` threads (1 for the wall clock)
         ``retry`` / ``transient_retries``  in-sweep retry rounds of
                           transient (deadline) failures
-        ``static_checks`` ``"off"`` only: the static analyzer is not
-                          ported (ROADMAP Queue 1 item 5); the
-                          reference's default is ``"warn"``
+        ``kernel_space``  the hierarchical kernel axis: ``"auto"`` (the
+                          built-in tile/variant grid) or a
+                          ``{field: values}`` grid over ``kernel``/
+                          ``block_q``/``block_k``/``mlstm_chunk``.  The
+                          autotuner times every (op, schedule) variant in
+                          isolation first (``kernel_cache``-resolved), then
+                          the outer cross-product carries only the
+                          ``kernel_top_k`` cheapest schedules per segment.
+                          Its fields override the same fields of
+                          ``clause_space``.  ``None`` = no inner sweep.
+        ``kernel_top_k``  surviving schedules per segment (``>= len(grid)``
+                          keeps everything)
+        ``static_checks`` the static analyzer (``repro_torch.analysis``):
+                          ``"warn"`` (default: lint every point, count
+                          the rules in ``SweepReport.static_rules``,
+                          dispatch everything), ``"strict"`` (also settle
+                          error-diagnosed rows as ``"static"`` before they
+                          become jobs: every dropped point provably fails)
+                          or ``"off"``
         ``prune``         exact lower-bound pruning (dry run only)
         ``use_cache``     the persistent structural score cache
         ``share_scores``  one program per structurally identical group
         ``record_batch``  DB rows per write transaction
 
-        ``mesh_space`` (item 4), ``kernel_space``, ``remote_url`` and
-        ``fallback`` (item 5) raise; the bundles carry none of them.
+        ``mesh_space`` (item 4), ``remote_url`` and ``fallback`` (item 5)
+        raise; the bundles carry none of them.
         """
         t0 = time.time()
         if isinstance(backend, BackendOptions):
@@ -240,13 +308,15 @@ class ComParTuner:
             if not isinstance(search, SearchOptions):
                 raise ValueError(f"search= takes a SearchOptions, got "
                                  f"{type(search).__name__}")
-            (prune, prune_margin, static_checks, use_cache, share_scores,
-             record_batch) = \
+            (prune, prune_margin, static_checks, kernel_space,
+             kernel_top_k, use_cache, share_scores, record_batch) = \
                 _unbundle(
                     search,
                     {"prune": (prune, False),
                      "prune_margin": (prune_margin, 0.1),
-                     "static_checks": (static_checks, "off"),
+                     "static_checks": (static_checks, "warn"),
+                     "kernel_space": (kernel_space, None),
+                     "kernel_top_k": (kernel_top_k, 2),
                      "use_cache": (use_cache, True),
                      "share_scores": (share_scores, True),
                      "record_batch": (record_batch, 64)},
@@ -257,7 +327,8 @@ class ComParTuner:
                                  f"{type(spec).__name__}")
             clash = [k for k, v in
                      {"providers": providers, "clause_space": clause_space,
-                      "global_space": global_space}.items()
+                      "global_space": global_space,
+                      "kernel_space": kernel_space}.items()
                      if v is not None]
             if clash:
                 raise ValueError(
@@ -266,12 +337,12 @@ class ComParTuner:
             providers = list(spec.providers) or None
             clause_space = spec.clauses
             global_space = spec.globals
+            kernel_space = spec.kernel_space
         require_meshless(mesh_space, "mesh_space")
-        if kernel_space is not None:
-            _pending("kernel_space=", ITEM5.format("kernels/autotune.py"))
         if remote_url is not None:
-            _pending("remote_url=", ITEM5.format("core/backends/*"))
-        check_static_checks(static_checks)
+            raise NotImplementedError(
+                "remote_url= is not ported yet: ROADMAP Queue 1 item 5 "
+                "(core/backends/*)")
         if workers > 1 and not self.executor.parallel_safe:
             log.warning("workers=%d -> 1: %s timings would contend on the "
                         "device", workers, type(self.executor).__name__)
@@ -287,14 +358,39 @@ class ComParTuner:
         providers = list(providers or all_providers())
         segs = fragment(self.cfg)
 
-        combos = enumerate_combinations(providers, clause_space,
+        # the hierarchical kernel axis: the inner (op, schedule) sweep
+        # first, then the OUTER space over the merged grid, each segment
+        # filtered to its top-k surviving schedules.  Filtering keeps the
+        # enumeration order, so kernel_top_k >= len(grid) registers rows
+        # as an exhaustive clause sweep would.
+        tuning = None
+        space = clause_space
+        if kernel_space is not None:
+            from repro_torch.kernels.autotune import (DEFAULT_KERNEL_SPACE,
+                                                      tune_segments)
+            if isinstance(kernel_space, str):
+                if kernel_space != "auto":
+                    raise ValueError(f"kernel_space={kernel_space!r}: the "
+                                     f"only string value is 'auto'")
+                kernel_space = DEFAULT_KERNEL_SPACE
+            space = dict(clause_space or DEFAULT_CLAUSE_SPACE)
+            space.update({k: tuple(v) for k, v in kernel_space.items()})
+            space = port_space(space)
+            tuning = tune_segments(self.db, self.cfg, self.shape, segs,
+                                   space, self.executor,
+                                   top_k=kernel_top_k, use_cache=use_cache)
+        self._kernel_tuning = tuning
+
+        combos = enumerate_combinations(providers, space,
                                         budget=budget, max_flags=max_flags)
         rep = SweepReport(
             self.project, n_combinations=0, n_knob_points=len(points),
             paper_count=paper_combination_count(
                 [len(get_provider(p).flags) for p in providers],
                 n_rtl=len(swept_knob_fields(global_space)),
-                n_d=len(clause_space or {}) or 6))
+                n_d=len(space or {}) or 6))
+        if tuning is not None:
+            rep.kernel_tuning = tuning.report
 
         # Combinator: register every (segment, combination, knob point) in
         # one transaction; inapplicable (provider, segment) pairs are
@@ -306,6 +402,9 @@ class ComParTuner:
                 if not get_provider(c.provider).applicable(self.cfg, seg):
                     rep.n_inapplicable += 1
                     continue
+                if tuning is not None and not tuning.keeps(seg.name,
+                                                           c.clause):
+                    continue
                 kept.append(c)
             per_seg_combos[seg.name] = kept
         reg = [(seg.name, c, kn) for kn in points for seg in segs
@@ -314,6 +413,7 @@ class ComParTuner:
         self.db.register_many(self.project, reg)
 
         self._execute(segs, per_seg_combos, points, rep, backend=backend,
+                      kernel_tuning=tuning, static_checks=static_checks,
                       workers=workers, fallback=fallback, retry=retry,
                       transient_retries=transient_retries, prune=prune,
                       prune_margin=prune_margin, use_cache=use_cache,
@@ -339,6 +439,7 @@ class ComParTuner:
         rep.n_failed = counts.get("failed", 0)
         rep.n_invalid = counts.get("invalid", 0)
         rep.n_pruned = counts.get("pruned", 0)
+        rep.n_static = counts.get("static", 0)
         rep.bound_tightness, violations = self._bound_tightness()
         if violations and hasattr(self.executor, "hw"):
             log.warning("bound soundness violated on %d done row(s): %s",
@@ -350,6 +451,11 @@ class ComParTuner:
         plan.meta["project"] = self.project
         rep.per_knob_total_s = dict(plan.meta["per_knob_total_s"])
         rep.elapsed_s = time.time() - t0
+        if self.registry is not None:
+            # plans are keyed by what they were tuned for: meshless, the
+            # local point
+            self.registry.register(self.cfg, self.shape, plan, report=rep,
+                                   cache_tag=self.executor.cache_tag)
         log.info(rep.summary())
         return plan, rep
 
@@ -369,8 +475,14 @@ class ComParTuner:
             seg = segs.get(r["segment"])
             if seg is None:
                 continue
+            # rows of a sweep without the kernel axis (same project) project
+            # to unmeasured schedules -> floor 0.0
+            kflops = self._kernel_tuning.floor_flops(
+                r["segment"], r["combo"].clause) \
+                if self._kernel_tuning is not None else 0.0
             bound = combo_lower_bound(self.cfg, self.shape, seg, r["combo"],
-                                      1, hw, knobs=r["knobs"])
+                                      1, hw, knobs=r["knobs"],
+                                      kernel_flops=kflops)
             total = CostTerms.from_dict(r["cost"]).total_s
             if total <= 0.0:
                 continue
@@ -408,6 +520,7 @@ class ComParTuner:
                  per_seg_combos: Dict[str, List[Combination]],
                  knob_points: Sequence[GlobalKnobs],
                  rep: SweepReport, *, backend: str, workers: int,
+                 kernel_tuning=None, static_checks: str = "off",
                  fallback: Optional[str], retry,
                  transient_retries: Optional[int], prune: bool,
                  prune_margin: float, use_cache: bool,
@@ -422,7 +535,8 @@ class ComParTuner:
             self.db, self.project, self.cfg, self.shape, None,
             self.executor, validate=self.validate,
             share_scores=share_scores, use_cache=use_cache,
-            shape_key=sk, mesh_key=mk)
+            shape_key=sk, mesh_key=mk, kernel_tuning=kernel_tuning,
+            static_checks=static_checks)
         recorder = Recorder(
             self.db, self.project, rep, shape_key=sk, mesh_key=mk,
             use_cache=use_cache, batch=record_batch)

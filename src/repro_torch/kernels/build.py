@@ -41,6 +41,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: head_dim values the kernels are compiled for (REPRO_DISPATCH_D)
 HEAD_DIMS = (16, 32, 64, 80, 96, 112, 128, 256)
+#: the mLSTM kernels' largest head dim, compiled into ``csrc/mlstm.cu``
+MLSTM_MAX_DH = 512
+#: each source's own ``-D`` flags
+DEFINES = {"mlstm": (f"-DREPRO_MLSTM_MAX_DH={MLSTM_MAX_DH}",)}
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
 
@@ -93,13 +97,14 @@ def build(names: Optional[Iterable[str]] = None, *,
     results: Dict[str, BuildResult] = {}
     t0 = time.perf_counter()
     for name in names:
-        out = _lib_path(name, NVCC_FLAGS)
+        out = _lib_path(name, NVCC_FLAGS + DEFINES.get(name, ()))
         if out.exists() and not verbose:
             results[name] = BuildResult(name, out, "")
             continue
         nvcc = nvcc or nvcc_path()
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [nvcc, *flags, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        cmd = [nvcc, *flags, *DEFINES.get(name, ()), "-o", str(tmp),
+               str(CSRC / SOURCES[name])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
@@ -150,19 +155,6 @@ def function(name: str, symbol: str, argtypes, restype=ctypes.c_int):
     return fn
 
 
-_CONSTS: Dict[tuple, int] = {}
-
-
-def constant(name: str, symbol: str) -> int:
-    """An int that kernel ``name``'s library reports (a tile size, a
-    limit), read once."""
-    key = (name, symbol)
-    val = _CONSTS.get(key)
-    if val is None:
-        val = _CONSTS[key] = function(name, symbol, [])()
-    return val
-
-
 # The launch path's device and stream queries, as plain ints: the public
 # ``torch.cuda.current_stream`` builds a Stream object on every call.  A
 # build of torch without CUDA has neither (and launches nothing).
@@ -189,6 +181,20 @@ def check(name: str, code: int):
                            f"({err(code).decode()})")
 
 
+def check_dtype(name: str, dtype: torch.dtype, dtypes=tuple(DTYPE_CODES)):
+    """Refuse a dtype the kernel is not compiled for."""
+    if dtype not in dtypes:
+        raise TypeError(f"{name}: dtype {dtype} not supported "
+                        f"({sorted(map(str, dtypes))})")
+
+
+def check_head_dim(name: str, head_dim: int, head_dims):
+    """Refuse a head dim the kernel is not compiled for."""
+    if head_dim not in head_dims:
+        raise ValueError(f"{name}: head_dim {head_dim} not compiled "
+                         f"(have {head_dims})")
+
+
 def validate(name: str, tensors, *, dtypes=tuple(DTYPE_CODES),
              head_dims=HEAD_DIMS):
     """Common checks before a launch: CUDA, one device, a dtype of
@@ -200,9 +206,7 @@ def validate(name: str, tensors, *, dtypes=tuple(DTYPE_CODES),
         raise ValueError(f"{name}: tensors must be on a CUDA device, got "
                          f"{t0.device}")
     dtype = t0.dtype
-    if dtype not in dtypes:
-        raise TypeError(f"{name}: dtype {dtype} not supported "
-                        f"({sorted(map(str, dtypes))})")
+    check_dtype(name, dtype, dtypes)
     dev = t0.get_device()
     for t in tensors:
         if t.dtype != dtype or t.get_device() != dev:
@@ -211,9 +215,8 @@ def validate(name: str, tensors, *, dtypes=tuple(DTYPE_CODES),
         if t.stride(-1) != 1:
             raise ValueError(f"{name}: last axis must be contiguous, "
                              f"strides {t.stride()}")
-    if head_dims is not None and t0.shape[-1] not in head_dims:
-        raise ValueError(f"{name}: head_dim {t0.shape[-1]} not compiled "
-                         f"(have {head_dims})")
+    if head_dims is not None:
+        check_head_dim(name, t0.shape[-1], head_dims)
 
 
 def stream_ptr(device) -> int:

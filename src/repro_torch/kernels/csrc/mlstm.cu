@@ -69,7 +69,12 @@ constexpr int CH = 64;       // chunk rows
 constexpr int NT = 256;      // 8 warps
 constexpr int DS = 32;       // key-dim slab of the output kernel
 constexpr int SO = 2;        // stages of the output kernel's ring
-constexpr int MAX_DH = 512;
+// the largest head dim, set by kernels/build.py (MLSTM_MAX_DH), which the
+// wrapper checks before a launch
+#ifndef REPRO_MLSTM_MAX_DH
+#error "REPRO_MLSTM_MAX_DH is not defined: build with kernels/build.py"
+#endif
+constexpr int MAX_DH = REPRO_MLSTM_MAX_DH;
 constexpr float LOG_EPS = -30.f;
 constexpr float NEG_BIG = -3.0e38f;
 
@@ -617,7 +622,6 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 extern "C" {
 
 int repro_mlstm_chunk() { return CH; }
-int repro_mlstm_max_dh() { return MAX_DH; }
 
 // Floats of workspace one call needs: one m per chunk, the states entering
 // chunks 1..NC-1 (C and n, DP = dh rounded up to 8), and the gates of the

@@ -40,18 +40,32 @@ def route(dtype: torch.dtype, head_dim: int) -> str:
     return "fma"
 
 
-def _tma_strides(t, D: int):
-    """Element strides (b, h, s) for a TMA tensor map over ``t``.
+def check_heads(H: int, KV: int):
+    """Refuse query heads that are not a multiple of the kv heads."""
+    if H % KV:
+        raise ValueError(f"{NAME}: heads {H} not a multiple of kv heads {KV}")
+
+
+def tma_strides(shape, strides, itemsize: int, D: int):
+    """Element strides (b, h, s) for a TMA tensor map over a (B,H,S,D) view
+    of these sizes.
 
     A size-1 axis's stride is never used, so it is set to ``D``; every
-    other stride must be a multiple of 16 bytes, and the base 16-byte
-    aligned, or TMA cannot take the view."""
-    st = [t.stride(d) if t.shape[d] > 1 else D for d in (0, 1, 2)]
-    if t.data_ptr() % 16 or any(s * t.element_size() % 16 for s in st):
-        raise ValueError(f"{NAME}: TMA needs 16-byte aligned strides and "
-                         f"base, got strides {t.stride()} at "
-                         f"{t.data_ptr():#x}")
+    other stride must be a multiple of 16 bytes, or TMA cannot take the
+    view."""
+    st = [strides[d] if shape[d] > 1 else D for d in (0, 1, 2)]
+    if any(s * itemsize % 16 for s in st):
+        raise ValueError(f"{NAME}: TMA needs 16-byte aligned strides, got "
+                         f"strides {tuple(strides)}")
     return st
+
+
+def _tma_strides(t, D: int):
+    """:func:`tma_strides` of ``t``, whose base must be 16-byte aligned."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{NAME}: TMA needs a 16-byte aligned base, got "
+                         f"{t.data_ptr():#x}")
+    return tma_strides(t.shape, t.stride(), t.element_size(), D)
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True,
@@ -66,8 +80,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
     if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"{NAME}: shapes q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
-    if H % KV:
-        raise ValueError(f"{NAME}: heads {H} not a multiple of kv heads {KV}")
+    check_heads(H, KV)
     out = torch.empty_like(q)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     tail = (int(causal), int(window), D ** -0.5, K.stream_ptr(q.device))

@@ -22,6 +22,22 @@ ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                ctypes.c_void_p])
 
 
+def check_heads(H: int, KV: int):
+    """Refuse query heads that do not divide over the kv heads."""
+    if H % KV:
+        raise ValueError(f"{NAME}: {H} heads do not divide over {KV} kv "
+                         f"heads")
+
+
+def check_rows(strides, base: int = 0):
+    """Refuse a view whose rows are not aligned: every stride but the last
+    a multiple of 8 elements (16 bytes at bf16), and the base 16-byte
+    aligned."""
+    if base % 16 or any(s % 8 for s in strides[:-1]):
+        raise ValueError(f"{NAME}: rows must be 16-byte aligned "
+                         f"(strides {tuple(strides)})")
+
+
 def flash_decode_fwd(q, k, v, pos: int, *, return_lse: bool = False):
     """q: (B,H,D); k/v: (B,KV,Smax,D) on a CUDA device; slots <= pos are
     attended.  Returns out (B,H,D) in q's dtype, and lse (B,H) f32 when
@@ -35,13 +51,9 @@ def flash_decode_fwd(q, k, v, pos: int, *, return_lse: bool = False):
     pos = int(pos)
     if pos < 0:
         raise ValueError(f"{NAME}: pos {pos} < 0")
-    if H % KV:
-        raise ValueError(f"{NAME}: {H} heads do not divide over {KV} kv "
-                         f"heads")
+    check_heads(H, KV)
     for t in (q, k, v):
-        if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:-1]):
-            raise ValueError(f"{NAME}: rows must be 16-byte aligned "
-                             f"(strides {t.stride()})")
+        check_rows(t.stride(), t.data_ptr())
     dev = q.device
     out = torch.empty((B, H, D), dtype=q.dtype, device=dev)
     lse = torch.empty((B, H), dtype=torch.float32, device=dev) \

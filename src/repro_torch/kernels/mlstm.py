@@ -5,7 +5,7 @@ The kernels (``csrc/mlstm.cu``) replace the Pallas TPU kernel
 reference: q, k, v ``(B,H,S,dh)`` f32 (q pre-scaled) and the gate logs li,
 lf ``(B,H,S)`` f32, all passed as strided views (the model's einsum
 outputs are permuted, not copied).  The kernels work in their own 64-row
-chunks; any ``S`` and any ``dh <= 512`` are accepted.
+chunks; any ``S`` and any ``dh <= MAX_DH`` (512) are accepted.
 
 One call is one op (one count in ``LAUNCHES``) and three CUDA kernels:
 the gates kernel (the key weights of every full chunk and the stabilizer
@@ -31,6 +31,16 @@ ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
             + [ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p])
 
 
+#: the kernels' largest head dim (compiled in by ``build.py``)
+MAX_DH = K.MLSTM_MAX_DH
+
+
+def check_head_dim(dh: int):
+    """Refuse a head dim above :data:`MAX_DH`."""
+    if dh > MAX_DH:
+        raise ValueError(f"{NAME}: head dim {dh} > {MAX_DH}")
+
+
 def mlstm_fwd(q, k, v, li, lf) -> torch.Tensor:
     """q,k,v: (B,H,S,dh) f32; li,lf: (B,H,S) f32, on a CUDA device ->
     h (B,H,S,dh) f32, contiguous."""
@@ -45,9 +55,7 @@ def mlstm_fwd(q, k, v, li, lf) -> torch.Tensor:
             raise ValueError(f"{NAME}: gates must be (B,H,S) f32 on "
                              f"{q.device}, got {tuple(g.shape)} {g.dtype} "
                              f"{g.device}")
-    max_dh = K.constant(NAME, "repro_mlstm_max_dh")
-    if dh > max_dh:
-        raise ValueError(f"{NAME}: head dim {dh} > {max_dh}")
+    check_head_dim(dh)
     out = torch.empty((B, H, S, dh), dtype=torch.float32, device=q.device)
     n_work = K.function(NAME, "repro_mlstm_workspace", [ctypes.c_int] * 4,
                         ctypes.c_int64)(B, H, S, dh)

@@ -1,8 +1,12 @@
 """Serving CLI: continuous-batching greedy decoding under a ComParX plan.
 
-Thin CLI over :class:`repro_torch.serve.engine.ServeEngine`.  The plan is
-the ``--plan`` file (a plan fused by either package loads unchanged) or the
-built-in default plan.  Runs on the card unless ``--device cpu``.
+Thin CLI over :class:`repro_torch.serve.engine.ServeEngine` and
+:class:`repro_torch.serve.registry.PlanRegistry`.  The plan resolves as
+the reference's does: the ``--plan`` file (a plan fused by either package
+loads unchanged) > a ``--registry-db`` lookup (keyed by the actual
+``--batch``/``--cache-len`` serving shape, with the nearest-traffic-shape
+fallback) > the built-in default plan.  Runs on the card unless
+``--device cpu``.
 
 Usage:
   python -m repro_torch.launch.serve --arch granite-8b
@@ -12,6 +16,8 @@ Usage:
   python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b
   python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --smoke \
       --device cpu
+  python -m repro_torch.launch.serve --arch stablelm-3b --smoke --batch 4 \
+      --cache-len 64 --registry-db ${TMPDIR:-/tmp}/registry.db --device cpu
 
 ``--arch`` takes every arch of ``repro_torch.configs.ARCHS``: granite-8b,
 stablelm-3b, recurrentgemma-2b, xlstm-125m, and the MoE archs
@@ -29,6 +35,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.plan import Plan, uniform_plan
 from repro_torch.models.context import SegmentClause
 from repro_torch.serve.engine import Request, ServeEngine
+from repro_torch.serve.registry import PlanRegistry, serving_shape
 
 
 def default_plan(cfg: ArchConfig) -> Plan:
@@ -53,14 +60,23 @@ def synthetic_requests(n: int, vocab: int, *, prompt_len: int,
     return reqs
 
 
-def resolve_plan(cfg, *, plan_path=None, registry_db=None):
-    """--plan file > default plan."""
-    if registry_db:
-        raise SystemExit(
-            "[serve] --registry-db is not ported yet: the plan registry "
-            "comes with the sweep (ROADMAP Queue 1 item 5); pass --plan")
+def resolve_plan(cfg, shape, *, plan_path=None, registry_db=None):
+    """--plan file > registry lookup (nearest shape) > default plan.
+    Returns ``(plan, source)``: ``file:<path>``, ``registry`` (the exact
+    serving shape), ``registry~<shape>`` (the nearest one) or
+    ``default``."""
     if plan_path:
         return Plan.load(plan_path), f"file:{plan_path}"
+    if registry_db:
+        entry = PlanRegistry(registry_db).lookup(cfg, shape)
+        if entry is None:
+            raise SystemExit(
+                f"[serve] no plan registered for {cfg.name} "
+                f"{shape.kind}:{shape.seq_len}x{shape.global_batch} in "
+                f"{registry_db}: run a sweep with registry= first "
+                f"(python -m repro_torch.serve.registry)")
+        src = "registry" if entry.exact else f"registry~{entry.shape}"
+        return entry.plan, src
     return default_plan(cfg), "default"
 
 
@@ -77,7 +93,7 @@ def serve(argv=None):
     ap.add_argument("--cache-len", type=int, default=128)
     ap.add_argument("--plan", default=None, help="plan JSON file")
     ap.add_argument("--registry-db", default=None,
-                    help="not ported yet (comes with the sweep)")
+                    help="resolve the plan from this PlanRegistry DB")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=4)
     ap.add_argument("--max-active", type=int, default=None,
@@ -91,7 +107,9 @@ def serve(argv=None):
     cfg = get_arch(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
-    plan, src = resolve_plan(cfg, plan_path=args.plan,
+    # the serving shape IS the CLI's deployment: --cache-len x --batch
+    shape = serving_shape(args.batch, args.cache_len)
+    plan, src = resolve_plan(cfg, shape, plan_path=args.plan,
                              registry_db=args.registry_db)
     print(f"[serve] arch={cfg.name} batch={args.batch} "
           f"cache={args.cache_len} plan={src} device={args.device}")

@@ -692,3 +692,94 @@ def test_cuda_clause_sweep_launches_the_kernels(dev, name, shape_name,
                                        "block_q": (16,), "mlstm_chunk": (16,)})
     assert rep.n_done == rep.n_combinations and rep.n_failed == 0
     assert {k for k, n in LAUNCHES.items() if n} == kernels
+
+
+# --- the tuned-plan loop: calibration, autotuner, lint ----------------------
+
+def test_calibration_readings_on_the_card(dev):
+    """Readings, not speed: above 0 and no more than 1.05x the H100 SXM
+    data sheet (989 TFLOP/s bf16, 67 f32, 3.35 TB/s); bf16 and HBM at
+    least 0.3 and 0.5 of it, or the profile would mislead the dry run."""
+    from repro_torch.core import machine as M
+    prof = M.calibrate(device=dev)
+    sheet = {"bfloat16": 989e12, "float32": 67e12}
+    for dt, peak in sheet.items():
+        assert 0 < prof.peak_flops[dt] <= 1.05 * peak, dt
+    assert prof.peak_flops["bfloat16"] >= 0.3 * sheet["bfloat16"]
+    assert 0.5 * 3.35e12 <= prof.hbm_bw <= 1.05 * 3.35e12
+    assert prof.key == M.profile_key("cuda", torch.cuda.get_device_name(dev),
+                                     torch.cuda.device_count())
+    hw = M.hardware_from_profile(prof)
+    assert hw.peak_flops == prof.peak_flops["bfloat16"]
+    assert hw.name == f"cal1-cuda-{prof.pid[:8]}"
+
+
+def test_autotune_one_op_on_the_card(dev):
+    """flash-attention at granite-8b's heads, S=1024: the cuda variants
+    run one program (one launch a call) and share its outcome; the plain
+    variants launch nothing; a second measurement is the cache's."""
+    import repro_torch.kernels.autotune as AT
+    from repro_torch.core.db import SweepDB
+    cfg = dataclasses.replace(get_arch("granite-8b"), num_layers=1)
+    shape = ShapeConfig("prefill-1x1024", 1024, 1, "prefill")
+    ex = WallClockExecutor(dev, repeats=3)
+    db = SweepDB()
+    reset_launches()
+    res, timed, _ = AT.measure_op(db, "flash_attention", cfg, shape,
+                                  AT.DEFAULT_KERNEL_SPACE, ex)
+    assert LAUNCHES["flash_attention"] == 1 + ex.repeats and timed == 8
+    cuda = [e for k, e in res.items() if "kernel=cuda" in k]
+    plain = [e for k, e in res.items() if "kernel=plain" in k]
+    assert len({e["time_s"] for e in cuda}) == 1
+    assert all(e["status"] == "done" for e in res.values())
+    assert min(e["time_s"] for e in plain) > cuda[0]["time_s"]
+    reset_launches()
+    _, timed, cached = AT.measure_op(db, "flash_attention", cfg, shape,
+                                     AT.DEFAULT_KERNEL_SPACE, ex)
+    assert (timed, cached) == (0, 8) and not any(LAUNCHES.values())
+
+
+def _refused(base, **change):
+    return dataclasses.replace(base, **change)
+
+
+@pytest.mark.parametrize("case", ["head_dim", "kv_heads", "dtype",
+                                  "mlstm_dh"])
+def test_cuda_lint_errors_match_the_wrapper_raises(dev, case):
+    """Each cuda-* ERROR of the lint is the refusal the kernel's wrapper
+    raises on the op program's tensors, message for message; the same
+    config without the change runs."""
+    import repro_torch.kernels.autotune as AT
+    from repro_torch.analysis.rules import lint_schedule
+    g = get_arch("granite-8b").smoke()
+    x = get_arch("xlstm-125m").smoke()
+    prefill = get_shape("prefill_32k").smoke()
+    decode = get_shape("decode_32k").smoke()
+    cases = {
+        "head_dim": (g, dict(head_dim=48),
+                     [("flash_attention", prefill), ("flash_decode", decode)]),
+        "kv_heads": (g, dict(num_heads=6, num_kv_heads=4),
+                     [("flash_attention", prefill), ("flash_decode", decode)]),
+        "dtype": (g, dict(dtype="float16"),
+                  [("flash_attention", prefill), ("flash_decode", decode)]),
+        "mlstm_dh": (x, dict(d_model=640, num_heads=2),
+                     [("mlstm_chunkwise", prefill)]),
+    }
+    base, change, sites = cases[case]
+    for op, shape in sites:
+        fields = {f: v for f, v in (("kernel", "cuda"), ("block_q", 16),
+                                    ("block_k", 16), ("mlstm_chunk", 16))
+                  if f in AT.OP_FIELDS[op]}
+        for cfg, refused in ((base, False), (_refused(base, **change), True)):
+            errs = [d for d in lint_schedule(op, fields, cfg, shape)
+                    if d.is_error]
+            fn, args = AT._op_program(op, fields, cfg, shape, dev)
+            with torch.no_grad():
+                if not refused:
+                    assert errs == []
+                    fn(*args)
+                    continue
+                assert len(errs) == 1 and errs[0].rule.startswith("cuda-")
+                with pytest.raises((ValueError, TypeError)) as exc:
+                    fn(*args)
+            assert str(exc.value) == errs[0].message

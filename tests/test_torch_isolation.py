@@ -58,13 +58,15 @@ def test_chip_smoke_fails_without_card(probe):
 
 def _entry_points():
     from repro_torch.configs import get_arch, get_shape
+    from repro_torch.core import machine
     from repro_torch.core.tuner import ComParTuner
     from repro_torch.data.pipeline import SyntheticLM
-    from repro_torch.examples import quickstart
+    from repro_torch.examples import quickstart, serve_batched
     from repro_torch.launch.serve import default_plan, serve
     from repro_torch.launch.train import train
     from repro_torch.models.model import init_cache, model_specs
     from repro_torch.models.params import init_params
+    from repro_torch.serve import registry
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.step import (make_decode_step, make_prefill,
                                         make_prefill_cache)
@@ -91,6 +93,10 @@ def _entry_points():
         "ComParTuner": lambda: ComParTuner(cfg,
                                            get_shape("train_4k").smoke()),
         "examples.quickstart": lambda: quickstart.main(["--smoke"]),
+        "examples.serve_batched": lambda: serve_batched.main([]),
+        "core.machine": lambda: machine.main(["--tiny"]),
+        "serve.registry": lambda: registry.main(["--db", ":memory:",
+                                                 "--smoke"]),
     }
 
 

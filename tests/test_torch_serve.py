@@ -193,15 +193,17 @@ def test_arch_registry_names_pending_roadmap_items():
 
 @pytest.mark.parametrize("arch", ["granite-8b", "recurrentgemma-2b",
                                   "xlstm-125m", "qwen3-moe-30b-a3b"])
-def test_cli_serves_on_cpu(capsys, arch):
+def test_cli_serves_on_cpu(capsys, arch, tmp_path):
     done = serve(["--arch", arch, "--smoke", "--device", "cpu",
                   "--requests", "2", "--tokens", "3", "--cache-len", "16"])
     assert sorted(done) == ["r0", "r1"]
     assert all(len(c.tokens) == 3 for c in done.values())
     assert "plan=default" in capsys.readouterr().out
-    with pytest.raises(SystemExit, match="not ported"):
+    # --registry-db is ported (tests/test_torch_registry.py serves from
+    # one): a registry without a plan for the shape refuses to guess
+    with pytest.raises(SystemExit, match="no plan registered"):
         serve(["--arch", "granite-8b", "--smoke", "--device", "cpu",
-               "--registry-db", "x.db"])
+               "--registry-db", str(tmp_path / "x.db")])
 
 
 def test_engine_prefill_and_decode_stats():
