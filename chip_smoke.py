@@ -60,7 +60,8 @@ phases (each failure exits non-zero and prints no result line):
             prompt tokens and 16 new tokens, every request completes and
             the batched streams equal the sequential ones; then a long
             load, 12 requests on the 8 slots, eight of them ~64 prompt
-            tokens and 2000 new (past recurrentgemma's 2048-token window):
+            tokens and 2000 new (past recurrentgemma's 2048-token window;
+            xlstm-125m, which has no window, 500 new):
             tok/s, peak memory, every request complete, a repeated request
             in a recycled slot gives the same stream; for recurrentgemma,
             decode past the window held to the forward in f32 (one group);
@@ -150,7 +151,36 @@ phases (each failure exits non-zero and prints no result line):
             then ``launch/serve.py --registry-db`` serves 8 requests
             (``plan=registry``, batched == sequential, flash-decode 36 x
             prompt tokens under a cuda plan); a lookup at capacity 4
-            resolves to ``registry~decode:2048x8``.
+            resolves to ``registry~decode:2048x8``.  The autotuner's top
+            2 counts programs: each segment's survivors hold the tied cuda
+            keys and a plain schedule; the line gives the fused stack and
+            its outer median beside sweep A's plain/none.
+  backends — the process and remote scoring backends
+            (``core/backends/``), one JSON line each (``{"backends": "a"
+            ... "e", ...}``), on stablelm-3b at full width cut to 8 layers,
+            train, B=2 at S=2048, the JSON example's providers and
+            microbatches {1, 2} with remat {none, dots} x kernel {plain,
+            cuda}.  a: the dry run (1 layer) on 2 process workers against
+            2 threads, the same rows and plan byte for byte.  b: the wall
+            clock in process (asked for 2 workers, clamped to 1) against
+            an in-process sequential sweep: every row done, the worker's
+            kernel launches (carried back at its shutdown) equal the
+            in-process run's, flash-attention at D=80 above 0.  c: a
+            FaultPlan kills the worker while it times the cuda stack job:
+            requeued to a fresh worker and done, the card's free memory
+            back within 64 MiB after close(), the parent's CUDA sound.  d:
+            ``python -m repro_torch.core.backends.server --workers 1`` as
+            a subprocess: a client sweep (2 layers), all rows done; a
+            second client with a fresh DB scores nothing server-side, same
+            plan; a third through a seeded ChaosProxy, same plan; the
+            server killed, a sweep with remat "full" added and
+            ``fallback="process"`` re-scores exactly the rows its cache
+            lacked.  e: ``python -m repro_torch.examples.compar_sweep_json
+            --backend process --layers 1``, the reference's spec (block_q
+            16) with kernel {plain, cuda}: rc 0, no failed row, the
+            Continue run scores nothing; and
+            ``python -m repro_torch.examples.train_e2e --full --steps 20``
+            (finite losses, resumed from step 10).
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after.  The last two stdout lines before the final one are the
@@ -166,7 +196,9 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -177,7 +209,7 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 PHASES = ("build", "kernels", "prefill", "serve", "trace",
           "prefill-recurrent", "serve-recurrent", "prefill-moe", "serve-moe",
-          "train", "sweep", "tune")
+          "train", "sweep", "tune", "backends")
 RECURRENT = ("recurrentgemma-2b", "xlstm-125m")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): memory rate, bf16 tensor-core
@@ -273,6 +305,33 @@ TUNE_SERVE_N, TUNE_SERVE_PROMPT, TUNE_SERVE_NEW = 8, 8, 8
 TUNE_OP_KERNEL = {"flash_attention": "flash_attention",
                   "flash_decode": "flash_decode",
                   "mlstm_chunkwise": "mlstm", "rglru": "rglru"}
+# backends: stablelm-3b (H 32, KV 32, D 80) at full width cut to 8 layers,
+# train, B=2 at S=2048 (4096 tokens a step: at B=1 the swept
+# microbatches=2 point cannot split the batch and fails, as PlanLint's
+# "microbatch" rule says; each microbatch of it is the kernels phase's
+# (1, 32, 2048, 80) flash-attention call), the JSON example's providers
+# and knob axis with remat {none, dots} x kernel {plain, cuda}
+BACKENDS_ARCH, BACKENDS_LAYERS, BACKENDS_B, BACKENDS_S = \
+    "stablelm-3b", 8, 2, 2048
+BACKENDS_SPACE = {"remat": ("none", "dots"), "kernel": ("plain", "cuda")}
+BACKENDS_GLOBALS = {"microbatches": (1, 2)}
+BACKENDS_REPEATS = 3
+# (a): the dry run's depth: rows and plan agree across backends at any
+# depth, and fake tensors take ~7 s a program at 8 layers on 2 threads
+BACKENDS_DRY_LAYERS = 1
+# (c): the killed worker's job is the cuda stack program timed over
+# BACKENDS_KILL_REPEATS calls; the parent kills it BACKENDS_KILL_AFTER_S
+# after the dispatch, with kernels running on the card
+BACKENDS_KILL_REPEATS, BACKENDS_KILL_AFTER_S = 30, 1.5
+# (d): the cell's depth for the scoring server (its programs are then not
+# b's, timed twice already), and the seeded chaos schedule in front of it
+BACKENDS_REMOTE_LAYERS = 2
+BACKENDS_CHAOS_SEED, BACKENDS_CHAOS_RATE = 7, 0.2
+# (e): the JSON example's depth on the card.  Its spec's block_q 16 splits
+# each head's 2048 queries into 128 chunks that the plain path runs one by
+# one, host-bound: at its default 8 layers its 8 stack programs take ~121 s
+# to time (tools/backends_timing.py --part tile), at 1 layer an eighth
+BACKENDS_EXAMPLE_LAYERS = 1
 
 
 class SmokeFailure(Exception):
@@ -290,6 +349,95 @@ def nvidia_smi_line() -> str:
     if r.returncode != 0:
         raise SmokeFailure(f"nvidia-smi failed: {r.stderr.strip()}")
     return r.stdout.strip().splitlines()[0]
+
+
+def adopt_orphans():
+    """Make this process the child subreaper of its descendants (Linux
+    prctl PR_SET_CHILD_SUBREAPER): a process whose parent dies first (a
+    scoring server's worker, an example's forkserver) is re-parented here,
+    so that :func:`stop_descendants` still finds it."""
+    import ctypes
+    try:
+        ctypes.CDLL(None, use_errno=True).prctl(36, 1, 0, 0, 0)
+    except (OSError, AttributeError):
+        pass
+
+
+def descendants() -> list:
+    """Pids of every running process below this one (from /proc; an
+    exited one waiting to be collected is not running)."""
+    children, zombies = {}, set()
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                state, ppid = f.read().rsplit(")", 1)[1].split()[:2]
+        except (OSError, ValueError):
+            continue
+        children.setdefault(int(ppid), []).append(int(d))
+        if state == "Z":
+            zombies.add(int(d))
+    out, todo = [], [os.getpid()]
+    while todo:
+        for c in children.get(todo.pop(), ()):
+            out.append(c)
+            todo.append(c)
+    return [p for p in out if p not in zombies]
+
+
+def _reap():
+    """Collect every exited child (adopted ones included)."""
+    while True:
+        try:
+            pid, _ = os.waitpid(-1, os.WNOHANG)
+        except ChildProcessError:
+            return
+        if pid == 0:
+            return
+
+
+def stop_descendants(grace_s: float = 15.0) -> list:
+    """Stop every process this run started and return the command lines of
+    those that were still running.  multiprocessing's forkserver and
+    resource tracker outlive the pools that used them until asked to stop;
+    anything else left (SIGTERM, then SIGKILL after ``grace_s``) is
+    reported."""
+    for mod, obj in (("multiprocessing.forkserver", "_forkserver"),
+                     ("multiprocessing.resource_tracker",
+                      "_resource_tracker")):
+        m = sys.modules.get(mod)
+        if m is not None:
+            try:
+                getattr(m, obj)._stop()
+            except Exception as e:     # noqa: BLE001 - swept below
+                log(f"{mod} stop: {type(e).__name__}: {e}")
+    _reap()
+    left = []
+    for pid in descendants():
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                left.append(f"{pid}: " + f.read().replace(b"\0", b" ")
+                            .decode(errors="replace").strip()[:200])
+        except OSError:
+            pass
+    for sig, wait_s in ((signal.SIGTERM, grace_s), (signal.SIGKILL, 10.0)):
+        pids = descendants()
+        if not pids:
+            break
+        for pid in pids:
+            try:
+                os.kill(pid, sig)
+            except OSError:
+                pass
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < wait_s:
+            _reap()
+            if not descendants():
+                break
+            time.sleep(0.1)
+    _reap()
+    return left
 
 
 def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
@@ -1982,13 +2130,16 @@ def phase_sweep(torch, state):
     state["sweep C"] = _sweep_dry_run(torch, state, a)
 
 
-def _programs(tuner):
-    """One row per unique program (segment, clause) of a sweep: its
-    status, median ms, peak GiB and error."""
+def _programs(tuner, knobs=False):
+    """One row per unique program (segment, clause; with ``knobs`` also
+    the microbatches point) of a sweep: its status, median ms, peak GiB
+    and error."""
     out = {}
     for r in tuner.db.results(tuner.project):
         cl = r["combo"].clause
         key = f"{r['segment']}/{cl.remat}/{cl.kernel}"
+        if knobs:
+            key += f"/mb{r['knobs'].microbatches if r['knobs'] else 1}"
         if key in out:
             continue
         d = (r["cost"] or {}).get("detail", {})
@@ -2001,9 +2152,10 @@ def _programs(tuner):
 
 
 @contextlib.contextmanager
-def _launches_per_job():
+def _launches_per_job(knobs=False):
     """Each wall-clock job's kernel launches (its warm-up and timed calls),
-    keyed ``segment/remat/kernel``: every job of a sweep run inside."""
+    keyed ``segment/remat/kernel`` (``/mb<n>`` added with ``knobs``):
+    every job of a sweep run inside."""
     from repro_torch.core.executor import WallClockExecutor
     from repro_torch.kernels import LAUNCHES
 
@@ -2016,8 +2168,10 @@ def _launches_per_job():
             return score(self, cfg, shape, seg, combo, *a, **kw)
         finally:
             cl = combo.clause
-            per_job[f"{seg.name}/{cl.remat}/{cl.kernel}"] = {
-                k: LAUNCHES[k] - n0[k] for k in LAUNCHES}
+            key = f"{seg.name}/{cl.remat}/{cl.kernel}"
+            if knobs:
+                key += f"/mb{getattr(kw.get('knobs'), 'microbatches', 1)}"
+            per_job[key] = {k: LAUNCHES[k] - n0[k] for k in LAUNCHES}
     WallClockExecutor.score_segment = counted
     try:
         yield per_job
@@ -2409,6 +2563,12 @@ def _tune_cell(torch, state, db, label, cfg, shape, registry=None):
         if got not in keep:
             fail.append(f"{seg}: plan schedule {got} not among the "
                         f"survivors {sorted(keep)}")
+        # the top 2 counts programs: all the tied cuda keys are one, so
+        # the cheapest plain schedule survives beside them
+        kinds = {k.split("kernel=")[1].split(",")[0] for k in keep}
+        if kinds != {"plain", "cuda"}:
+            fail.append(f"{seg}: survivors {sorted(keep)} hold the kernels "
+                        f"{sorted(kinds)}, expected plain and cuda")
     again = ComParTuner(cfg, shape, device="cuda", db=db,
                         project=f"tune-{label}", mode="continue",
                         executor="wallclock")
@@ -2419,21 +2579,37 @@ def _tune_cell(torch, state, db, label, cfg, shape, registry=None):
         fail.append(f"second sweep timed {rep2.kernel_tuning['n_timed']} "
                     f"variants ({len(per2)} programs), scored "
                     f"{rep2.n_scored} rows")
+    programs = _programs(tuner)
+    stack = plan.segments["g0"].clause
+    sweep_a = state.get("sweep A", {}).get("programs", {})
     line = {"tune": "autotune", "cell": label, "arch": cfg.name,
             "layers": cfg.num_layers,
             "shape": [shape.global_batch, shape.seq_len, shape.kind],
             "variants": variants, "kernel_tuning": kt,
             "surviving": {k: sorted(v) for k, v in tuning.surviving.items()},
             "plan": {s: c.label() for s, c in sorted(plan.segments.items())},
+            "stack": f"{stack.kernel}/{stack.remat}",
+            "stack_median_ms": programs.get(
+                f"g0/{stack.remat}/{stack.kernel}", {}).get("median_ms"),
+            "stack_medians_ms": {k: p["median_ms"]
+                                 for k, p in programs.items()
+                                 if k.startswith("g0/")},
+            "sweep_A_plain_none_ms": sweep_a.get(
+                "g0/none/plain", {}).get("median_ms")
+            if label == "granite-8b" else None,
             "n_combinations": rep.n_combinations,
             "unique_programs": rep.n_scored, "n_failed": rep.n_failed,
-            "programs": _programs(tuner), "static_rules": rep.static_rules,
+            "programs": programs, "static_rules": rep.static_rules,
             "launches_per_variant": per, "launches": launches,
             "sweep_s": wall, "again_timed": rep2.kernel_tuning["n_timed"],
             "gates_failed": fail}
     print(json.dumps(line), flush=True)
     log(f"tune autotune {label}: {rep.summary()}; best "
-        f"{kt['per_op_best']}; {wall:.1f}s; {'ok' if not fail else 'FAIL'}")
+        f"{kt['per_op_best']}; stack {line['stack']} at "
+        f"{line['stack_median_ms']} ms (stack medians "
+        f"{line['stack_medians_ms']}; sweep A plain/none "
+        f"{line['sweep_A_plain_none_ms']} ms); {wall:.1f}s; "
+        f"{'ok' if not fail else 'FAIL'}")
     if fail:
         raise SmokeFailure(f"tune autotune {label}: {fail}")
     return plan
@@ -2724,6 +2900,472 @@ def _tune_registry(torch, state, db, reg_path):
 
 
 # kernel -> (source, TPU kernel it replaces, the paths that launch it)
+def phase_backends(torch, state):
+    """The process and remote scoring backends on the card (see the module
+    docstring): a, the process backend's dry run against the thread
+    backend's; b, its wall clock against an in-process sequential sweep;
+    c, a worker killed holding a cuda job; d, the scoring server, a warm
+    second client, a chaos proxy and the process fallback; e, the
+    ``compar_sweep_json`` and ``train_e2e`` examples."""
+    import tempfile
+
+    _free_params(torch, state)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_backends_") as tmp:
+        tmp = Path(tmp)
+        _backends_dry(torch, state)
+        _backends_wallclock(torch, state)
+        _backends_kill(torch, state)
+        _backends_remote(torch, state, tmp)
+        _backends_examples(torch, state, tmp)
+
+
+def _backends_cell(layers=BACKENDS_LAYERS):
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    cfg = dataclasses.replace(get_arch(BACKENDS_ARCH), num_layers=layers)
+    shape = ShapeConfig(f"train-{BACKENDS_B}x{BACKENDS_S}", BACKENDS_S,
+                        BACKENDS_B, "train")
+    return cfg, shape
+
+
+def _backends_tuner(project, executor="wallclock", db=None,
+                    layers=BACKENDS_LAYERS):
+    from repro_torch.core.tuner import ComParTuner
+    cfg, shape = _backends_cell(layers)
+    tuner = ComParTuner(cfg, shape, device="cuda", db=db, project=project,
+                        executor=executor)
+    if executor == "wallclock":
+        tuner.executor.repeats = BACKENDS_REPEATS
+    return tuner
+
+
+def _backends_sweep(tuner, space=BACKENDS_SPACE, **kw):
+    return tuner.sweep(providers=["tensor_par", "fsdp"], clause_space=space,
+                       global_space=BACKENDS_GLOBALS, max_flags=1, **kw)
+
+
+def _plan_bytes(plan):
+    """The fused decisions (per-segment combinations and knob point)."""
+    d = plan.to_json()
+    return json.dumps({"segments": d["segments"], "knobs": d["knobs"]},
+                      sort_keys=True)
+
+
+def _medians(tuner):
+    """Each unique program's median ms, keyed segment/remat/kernel/mb."""
+    return {k: p["median_ms"] for k, p in _programs(tuner, True).items()}
+
+
+def _backends_dry(torch, state):
+    """(a) The process backend (2 workers) against the thread backend (2
+    threads), dry run at BACKENDS_DRY_LAYERS layers: the same rows and the
+    same plan, byte for byte."""
+    seen, info = {}, {}
+    for backend in ("thread", "process"):
+        t0 = time.perf_counter()
+        with _backends_tuner(f"backends-dry-{backend}", "dryrun",
+                             layers=BACKENDS_DRY_LAYERS) as tuner:
+            plan, rep = _backends_sweep(tuner, backend=backend, workers=2)
+            engine = next(iter(tuner._engines.values()), None)
+            rows, _ = _rows_and_plan(tuner, plan)
+        seen[backend] = (rows, _plan_bytes(plan))
+        info[backend] = {"wall_s": time.perf_counter() - t0,
+                         "n_combinations": rep.n_combinations,
+                         "unique_programs": rep.n_scored,
+                         "n_failed": rep.n_failed,
+                         "spawn_s": engine.spawn_s if engine else None}
+    fail = []
+    if seen["thread"] != seen["process"]:
+        fail.append("process and thread backends differ in rows or plan")
+    if any(i["n_failed"] for i in info.values()):
+        fail.append(f"failed rows: {info}")
+    line = {"backends": "a", "executor": "dryrun",
+            "layers": BACKENDS_DRY_LAYERS, "rows": len(seen["thread"][0]),
+            "same_rows_and_plan": not fail, **info, "gates_failed": fail}
+    print(json.dumps(line), flush=True)
+    log(f"backends a (dry run): thread {info['thread']['wall_s']:.1f}s, "
+        f"process {info['process']['wall_s']:.1f}s (spawn "
+        f"{info['process']['spawn_s']}); {'ok' if not fail else 'FAIL'}")
+    if fail:
+        raise SmokeFailure(f"backends a: {fail}")
+
+
+def _backends_wallclock(torch, state):
+    """(b) Wall clock on the card: an in-process sequential sweep, then the
+    process backend asked for 2 workers (the tuner takes 1).  Every row
+    done; the worker's kernel launches, carried back at its shutdown,
+    equal the in-process run's, flash-attention's at D=80 above 0."""
+    import logging
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    seq = _backends_tuner("backends-sequential")
+    reset_launches()
+    t0 = time.perf_counter()
+    with _launches_per_job(knobs=True) as per_job:
+        plan_s, rep_s = _backends_sweep(seq, backend="sequential")
+    wall_s = time.perf_counter() - t0
+    seq_launches = dict(LAUNCHES)
+    state.setdefault("launches", {})[
+        "backends stablelm-3b sequential"] = seq_launches
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    clamp = []
+
+    class _Clamp(logging.Handler):
+        def emit(self, record):
+            clamp.append(record.getMessage())
+    handler = _Clamp(logging.WARNING)
+    logging.getLogger("repro_torch.tuner").addHandler(handler)
+    reset_launches()
+    tuner = _backends_tuner("backends-process")
+    t0 = time.perf_counter()
+    try:
+        plan_p, rep_p = _backends_sweep(tuner, backend="process", workers=2)
+        engine = next(iter(tuner._engines.values()))
+    finally:
+        tuner.close()
+        logging.getLogger("repro_torch.tuner").removeHandler(handler)
+    wall_p = time.perf_counter() - t0
+    worker = dict(engine.launches)
+    parent = dict(LAUNCHES)
+    state["launches"]["backends stablelm-3b"] = worker
+    fail = []
+    for label, rep in (("sequential", rep_s), ("process", rep_p)):
+        if rep.n_failed or rep.n_done != rep.n_combinations:
+            fail.append(f"{label}: {rep.n_done} of {rep.n_combinations} "
+                        f"rows done, {rep.n_failed} failed")
+    if engine.workers != 1 or not any("workers=2 -> 1" in m for m in clamp):
+        fail.append(f"pool of {engine.workers} workers; log {clamp}")
+    if worker != seq_launches or worker.get("flash_attention", 0) <= 0:
+        fail.append(f"worker launches {worker} != in-process {seq_launches}")
+    if any(parent.values()):
+        fail.append(f"the parent launched {parent} during the process run")
+    per_job_fa = sum(j["flash_attention"] for j in per_job.values())
+    if per_job_fa != seq_launches["flash_attention"]:
+        fail.append(f"per-job flash-attention {per_job_fa} != "
+                    f"{seq_launches['flash_attention']}")
+    med_s, med_p = _medians(seq), _medians(tuner)
+    line = {"backends": "b", "executor": "wallclock", "arch": BACKENDS_ARCH,
+            "layers": BACKENDS_LAYERS,
+            "shape": [BACKENDS_B, BACKENDS_S, "train"],
+            "repeats": BACKENDS_REPEATS,
+            "n_combinations": rep_p.n_combinations,
+            "unique_programs": rep_p.n_scored, "workers": engine.workers,
+            "clamp_log": clamp, "spawn_s": engine.spawn_s,
+            "sequential_s": wall_s, "process_s": wall_p,
+            "medians_ms": {k: {"process": med_p.get(k), "sequential": v}
+                           for k, v in sorted(med_s.items())},
+            "plan_process": {s: c.label() for s, c in
+                             sorted(plan_p.segments.items())},
+            "plan_sequential": {s: c.label() for s, c in
+                                sorted(plan_s.segments.items())},
+            "knobs": [plan_p.knobs.key(), plan_s.knobs.key()],
+            "worker_launches": worker, "sequential_launches": seq_launches,
+            "launches_per_job": per_job, "gates_failed": fail}
+    print(json.dumps(line), flush=True)
+    log(f"backends b (wall clock): sequential {wall_s:.1f}s, process "
+        f"{wall_p:.1f}s, worker flash-attention {worker['flash_attention']}"
+        f" == {seq_launches['flash_attention']}; "
+        f"{'ok' if not fail else 'FAIL'}")
+    if fail:
+        raise SmokeFailure(f"backends b: {fail}")
+
+
+def _backends_kill(torch, state):
+    """(c) A FaultPlan kills the worker holding the cuda stack job while it
+    times it: the job is requeued to a fresh worker and completes; the
+    card's free memory after close() agrees with the reading before the
+    pool; the parent's CUDA still works."""
+    from repro_torch.core.backends import JobSpec, ProcessBackend
+    from repro_torch.core.backends.faults import KILL, FaultPlan, FaultRule
+    from repro_torch.core.combinator import Combination, GlobalKnobs
+    from repro_torch.core.executor import WallClockExecutor
+    from repro_torch.core.segment import fragment
+    from repro_torch.models.context import SegmentClause
+
+    class KillMidJob(FaultPlan):
+        """Fires after the worker has held its job for a while."""
+        def fires(self, point):
+            rule = super().fires(point)
+            if rule is not None:
+                time.sleep(BACKENDS_KILL_AFTER_S)
+            return rule
+
+    cfg, shape = _backends_cell()
+    segs = {s.kind: s for s in fragment(cfg)}
+    knobs = GlobalKnobs(microbatches=1)
+
+    def job(key, seg, kernel):
+        return JobSpec(key, seg, Combination(
+            "fsdp", frozenset(), SegmentClause(kernel=kernel)),
+            segments=(seg.name,), knobs=knobs)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free0 = torch.cuda.mem_get_info()[0]
+    ex = WallClockExecutor("cuda", repeats=BACKENDS_KILL_REPEATS,
+                           timeout_s=600)
+    backend = ProcessBackend(ex, cfg, shape, workers=1, timeout_s=600)
+    t0 = time.perf_counter()
+    try:
+        # warm the worker (its CUDA context and libraries) on a cheap job
+        warm = list(backend.run([job("embed", segs["embed"], "plain")]))
+        backend.fault_plan = KillMidJob(
+            {"process.kill_worker": [FaultRule(KILL, at=(1,))]})
+        outs = list(backend.run([job("stack", segs["stack"], "cuda")]))
+    finally:
+        backend.close()
+    wall = time.perf_counter() - t0
+    free = None
+    t1 = time.perf_counter()
+    while True:        # a dead process's context is freed as it exits
+        torch.cuda.empty_cache()
+        free = torch.cuda.mem_get_info()[0]
+        if abs(free - free0) <= SWEEP_MEMORY_SLACK or \
+                time.perf_counter() - t1 > 30:
+            break
+        time.sleep(0.2)
+    fail = []
+    try:
+        x = torch.arange(1024, device="cuda", dtype=torch.float32)
+        ok = float(x.sum()) == 1023 * 1024 / 2
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        ok = False
+        fail.append(f"the parent's CUDA failed: {e}")
+    if not ok:
+        fail.append("the parent's CUDA computed a wrong sum")
+    if [o.status for o in warm] != ["done"]:
+        fail.append(f"warm-up job: {warm}")
+    if [(o.status, o.attempts) for o in outs] != [("done", 2)]:
+        fail.append(f"killed job: {[o.to_json() for o in outs]}")
+    wids = [w for _, w in backend.dispatch_log]
+    if len(set(wids)) != 2:
+        fail.append(f"the requeue went to workers {wids}")
+    if abs(free - free0) > SWEEP_MEMORY_SLACK:
+        fail.append(f"free memory {free / 2**20:.1f} MiB after close, "
+                    f"{free0 / 2**20:.1f} before the pool")
+    line = {"backends": "c", "repeats": BACKENDS_KILL_REPEATS,
+            "kill_after_s": BACKENDS_KILL_AFTER_S,
+            "events": backend.fault_plan.events,
+            "dispatch_workers": wids,
+            "outcome": [o.to_json() for o in outs],
+            "free_before_mib": free0 / 2**20, "free_after_mib": free / 2**20,
+            "reclaim_s": time.perf_counter() - t1, "wall_s": wall,
+            "spawn_s": backend.spawn_s, "gates_failed": fail}
+    print(json.dumps(line), flush=True)
+    log(f"backends c (kill): requeued to worker {wids}, free "
+        f"{free0 / 2**20:.0f} -> {free / 2**20:.0f} MiB; "
+        f"{'ok' if not fail else 'FAIL'}")
+    if fail:
+        raise SmokeFailure(f"backends c: {fail}")
+
+
+def _start_server(db, log_path):
+    """``python -m repro_torch.core.backends.server`` on a free loopback
+    port with one worker; returns (process, url) once it listens."""
+    import os
+    import socket
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    out = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.core.backends.server",
+         "--db", str(db), "--workers", "1", "--port", str(port)],
+        env=env, stdout=out, stderr=subprocess.STDOUT, cwd=str(ROOT))
+    url = f"http://127.0.0.1:{port}"
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < 120:
+        if proc.poll() is not None:
+            break
+        try:
+            if _get(url, "/v1/health").get("ok"):
+                return proc, url
+        except OSError:
+            time.sleep(0.2)
+    proc.kill()
+    proc.wait()
+    raise SmokeFailure(f"scoring server did not start: "
+                       f"{Path(log_path).read_text()[-2000:]}")
+
+
+def _get(url, path):
+    import urllib.request
+    with urllib.request.urlopen(url + path, timeout=10) as r:
+        return json.loads(r.read())
+
+
+def _backends_remote(torch, state, tmp):
+    """(d) The scoring server (one worker) as a subprocess: a client sweep
+    of cell (b) cut to BACKENDS_REMOTE_LAYERS layers with every row done; a
+    second client with a fresh DB runs nothing server-side and fuses the
+    same plan; so does a third through a seeded chaos proxy; then, the
+    server killed, a sweep on the first client's DB with remat "full"
+    added falls back to the process backend for exactly the rows its
+    cache did not hold."""
+    def tuner(project, db=None):
+        return _backends_tuner(project, db=db, layers=BACKENDS_REMOTE_LAYERS)
+
+    from repro_torch.core.backends import RetryPolicy
+    from repro_torch.core.backends.faults import (DROP, ERROR, ChaosProxy,
+                                                  FaultPlan, FaultRule)
+    from repro_torch.core.db import SweepDB
+
+    t0 = time.perf_counter()
+    proc, url = _start_server(tmp / "server.db", tmp / "server.log")
+    fail, info = [], {"server_start_s": time.perf_counter() - t0}
+    try:
+        t0 = time.perf_counter()
+        c1 = tuner("backends-remote-1", db=SweepDB(str(tmp / "client.db")))
+        plan1, rep1 = _backends_sweep(c1, remote_url=url)
+        info["client_1"] = {"wall_s": time.perf_counter() - t0,
+                            "summary": rep1.summary(),
+                            "medians_ms": _medians(c1)}
+        stats1 = _get(url, "/v1/stats")
+        if rep1.n_failed or rep1.n_done != rep1.n_combinations:
+            fail.append(f"client 1: {rep1.summary()}")
+        t0 = time.perf_counter()
+        plan2, rep2 = _backends_sweep(tuner("backends-remote-2"),
+                                      remote_url=url)
+        stats2 = _get(url, "/v1/stats")
+        info["client_2"] = {"wall_s": time.perf_counter() - t0,
+                            "summary": rep2.summary()}
+        if stats2["n_compiled"] != stats1["n_compiled"] or rep2.n_scored \
+                or _plan_bytes(plan2) != _plan_bytes(plan1):
+            fail.append(f"warm client: n_compiled {stats1['n_compiled']} "
+                        f"-> {stats2['n_compiled']}, scored "
+                        f"{rep2.n_scored}, same plan "
+                        f"{_plan_bytes(plan2) == _plan_bytes(plan1)}")
+        chaos = FaultPlan({"proxy": [
+            FaultRule(DROP, rate=BACKENDS_CHAOS_RATE),
+            FaultRule(ERROR, rate=BACKENDS_CHAOS_RATE)]},
+            seed=BACKENDS_CHAOS_SEED)
+        proxy = ChaosProxy(url, chaos)
+        proxy.start()
+        try:
+            plan3, rep3 = _backends_sweep(
+                tuner("backends-remote-chaos"),
+                remote_url=proxy.url,
+                retry=RetryPolicy(budget_s=30.0, base_s=0.05, cap_s=0.25))
+        finally:
+            proxy.close()
+        info["chaos"] = {"events": chaos.events, "summary": rep3.summary()}
+        if _plan_bytes(plan3) != _plan_bytes(plan1) or rep3.n_failed or \
+                not chaos.events:
+            fail.append(f"chaos client: {rep3.summary()}, events "
+                        f"{chaos.events}")
+    finally:
+        proc.terminate()
+        proc.wait(timeout=60)
+    info["server_exit"] = proc.returncode
+    info["stats"] = {"after_client_1": stats1, "after_client_2": stats2}
+    t0 = time.perf_counter()
+    with tuner("backends-fallback",
+               db=SweepDB(str(tmp / "client.db"))) as c4:
+        plan4, rep4 = _backends_sweep(
+            c4, space=dict(BACKENDS_SPACE, remat=("none", "dots", "full")),
+            remote_url=url, fallback="process",
+            retry=RetryPolicy(budget_s=2.0, base_s=0.05, cap_s=0.2))
+    info["fallback"] = {"wall_s": time.perf_counter() - t0,
+                        "summary": rep4.summary(),
+                        "n_fallback_local": rep4.n_fallback_local,
+                        "n_cached": rep4.n_cached,
+                        "n_combinations": rep4.n_combinations,
+                        "plan": {s: c.label() for s, c in
+                                 sorted(plan4.segments.items())}}
+    left = rep4.n_combinations - rep4.n_cached
+    if rep4.n_failed or rep4.n_done != rep4.n_combinations or \
+            rep4.n_fallback_local != left or not left or \
+            set(plan4.segments) != set(plan1.segments):
+        fail.append(f"fallback: {rep4.summary()}, {left} rows left")
+    line = {"backends": "d", "server_workers": 1,
+            "layers": BACKENDS_REMOTE_LAYERS, **info,
+            "plan": {s: c.label() for s, c in sorted(plan1.segments.items())},
+            "gates_failed": fail}
+    print(json.dumps(line), flush=True)
+    log(f"backends d (remote): client 1 {info['client_1']['wall_s']:.1f}s, "
+        f"warm client {info['client_2']['wall_s']:.1f}s, chaos events "
+        f"{len(chaos.events)}, fallback {rep4.n_fallback_local} of "
+        f"{rep4.n_combinations} rows; {'ok' if not fail else 'FAIL'}")
+    if fail:
+        raise SmokeFailure(f"backends d: {fail}")
+
+
+def _failed_rows(db_path):
+    """segment/clause/knobs -> error of each failed row of a sweep DB."""
+    from repro_torch.core.db import SweepDB
+    db = SweepDB(str(db_path))
+    try:
+        return {f"{r['segment']}/{r['combo'].label()}/"
+                f"{r['knobs'].key() if r['knobs'] else ''}": r["error"][:300]
+                for p in ("json-demo",) for r in db.results(p)
+                if r["status"] == "failed"}
+    finally:
+        db.conn.close()
+
+
+def _backends_examples(torch, state, tmp):
+    """(e) ``python -m repro_torch.examples.compar_sweep_json --backend
+    process --layers 1`` on the card, the reference's spec (block_q 16)
+    with kernel {plain, cuda} (rc 0, no failed row, the Continue run
+    scores nothing) and ``python -m repro_torch.examples.train_e2e --full
+    --steps 20`` (finite losses, the restart resumes from its
+    checkpoint)."""
+    import os
+
+    work = tmp / "examples"
+    work.mkdir()
+    env = dict(os.environ, TMPDIR=str(work), PYTHONPATH=os.pathsep.join(
+        [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    fail, info = [], {}
+    for name, args in (("compar_sweep_json", ["--backend", "process",
+                                              "--layers",
+                                              str(BACKENDS_EXAMPLE_LAYERS)]),
+                       ("train_e2e", ["--full", "--steps", "20"])):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m",
+                            f"repro_torch.examples.{name}", *args],
+                           env=env, cwd=str(ROOT), capture_output=True,
+                           text=True, timeout=900)
+        out = r.stdout + r.stderr
+        info[name] = {"rc": r.returncode, "wall_s": time.perf_counter() - t0}
+        if r.returncode != 0:
+            fail.append(f"{name}: rc {r.returncode}: {out[-3000:]}")
+            continue
+        if name == "compar_sweep_json":
+            first = [ln for ln in out.splitlines()
+                     if ln.startswith("first run:")]
+            cont = [ln for ln in out.splitlines()
+                    if ln.startswith("continue run:")]
+            info[name].update(first=first, cont=cont,
+                              failed_rows=_failed_rows(
+                                  work / "compar_sweep.db"))
+            if not cont or " scored=0 " not in cont[0] or not first or \
+                    " failed=0 " not in first[0]:
+                fail.append(f"{name}: {first} / {cont} / "
+                            f"{info[name]['failed_rows']}")
+        else:
+            losses = [float(m) for m in re.findall(r"loss=([-\w.+]+)", out)]
+            resumed = re.findall(r"resumed from step (\d+)", out)
+            info[name].update(losses=losses, resumed=resumed)
+            if not losses or not all(math.isfinite(x) for x in losses) or \
+                    resumed != ["10"]:
+                fail.append(f"{name}: losses {losses}, resumed {resumed}")
+    line = {"backends": "e", **info, "gates_failed": fail}
+    print(json.dumps(line), flush=True)
+    log(f"backends e (examples): "
+        f"{ {k: round(v['wall_s'], 1) for k, v in info.items()} }; "
+        f"{'ok' if not fail else 'FAIL'}")
+    if fail:
+        raise SmokeFailure(f"backends e: {fail}")
+
+
 KERNELS = {
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:66",
@@ -2733,7 +3375,9 @@ KERNELS = {
                          f"train {MOE}",
                          "sweep granite-8b", "sweep recurrentgemma-2b",
                          "tune granite-8b", "tune recurrentgemma-2b",
-                         "tune lint granite-8b")),
+                         "tune lint granite-8b",
+                         "backends stablelm-3b sequential",
+                         "backends stablelm-3b")),
     "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
                      "src/repro/kernels/flash_decode.py:58",
                      ("serve granite-8b", f"serve {MOE}",
@@ -2888,7 +3532,9 @@ def main(argv=None) -> int:
                "prefill-moe": phase_prefill_moe,
                "serve-moe": phase_serve_moe,
                "train": phase_train, "sweep": phase_sweep,
-               "tune": phase_tune}
+               "tune": phase_tune, "backends": phase_backends}
+    adopt_orphans()
+    failed = None
     try:
         for name in PHASES:
             if name in phases:
@@ -2897,7 +3543,15 @@ def main(argv=None) -> int:
                 torch.cuda.synchronize()
                 log(f"phase {name}: {time.perf_counter() - t0:.1f}s")
     except SmokeFailure as e:
-        log(f"FAIL: {e}")
+        failed = e
+    finally:
+        # every process the phases started has stopped before the result
+        left = stop_descendants()
+    if failed is not None:
+        log(f"FAIL: {failed}")
+        return 1
+    if left:
+        log(f"FAIL: processes still running after the phases: {left}")
         return 1
     log(f"all phases: {time.perf_counter() - t_all:.1f}s")
     if "kernels" in phases:

@@ -1,4 +1,5 @@
-"""Architecture registry: ``--arch <id>`` lookup.
+"""Architecture registry: ``--arch <id>`` lookup and the config wire
+format, as the reference's ``src/repro/configs/registry.py``.
 
 Lists only the archs the port can run today: dense ``attn`` stacks with
 full RoPE (granite-8b, stablelm-3b), the recurrent archs
@@ -7,10 +8,21 @@ sLSTM) and the MoE archs (qwen3-moe-30b-a3b, kimi-k2-1t-a32b:
 ``attn_moe`` stacks with sorted dispatch).  Every other arch of the
 reference registry raises ``KeyError`` naming the ROADMAP item that
 brings it.
+
+``arch_to_spec`` / ``shape_to_spec`` serialize a config for the sweep
+backends' JobSpec wire format (process workers and the scoring server).
+Deserialization prefers the registry: a spec whose name resolves to a
+field-identical registry config (the ``-smoke`` derivations included)
+returns the canonical object; an ad-hoc config is rebuilt from its
+serialized fields.
 """
 from __future__ import annotations
 
-from repro_torch.configs.base import ArchConfig, ShapeConfig, SHAPES
+import dataclasses
+import json
+
+from repro_torch.configs.base import (ArchConfig, ShapeConfig, SHAPES,
+                                      shape_applies)
 from repro_torch.configs.granite_8b import CONFIG as _granite
 from repro_torch.configs.kimi_k2_1t_a32b import CONFIG as _kimi
 from repro_torch.configs.qwen3_moe_30b_a3b import CONFIG as _qwen3
@@ -46,3 +58,46 @@ def get_shape(name: str) -> ShapeConfig:
     if name not in SHAPES:
         raise KeyError(f"unknown shape {name!r}; have {sorted(SHAPES)}")
     return SHAPES[name]
+
+
+def _jsonable(d: dict) -> dict:
+    """Normalize through JSON (tuples -> lists) for field comparison."""
+    return json.loads(json.dumps(d, sort_keys=True, default=str))
+
+
+def arch_to_spec(cfg: ArchConfig) -> dict:
+    return {"name": cfg.name, "fields": _jsonable(dataclasses.asdict(cfg))}
+
+
+def arch_from_spec(spec: dict) -> ArchConfig:
+    try:
+        cand = get_arch(spec["name"])
+        if _jsonable(dataclasses.asdict(cand)) == _jsonable(spec["fields"]):
+            return cand
+    except KeyError:
+        pass
+    fields = dict(spec["fields"])
+    fields["block_pattern"] = tuple(fields.get("block_pattern") or ("attn",))
+    return ArchConfig(**fields)
+
+
+def shape_to_spec(shape: ShapeConfig) -> dict:
+    return {"name": shape.name, "fields": _jsonable(dataclasses.asdict(shape))}
+
+
+def shape_from_spec(spec: dict) -> ShapeConfig:
+    try:
+        cand = get_shape(spec["name"])
+        if _jsonable(dataclasses.asdict(cand)) == _jsonable(spec["fields"]):
+            return cand
+    except KeyError:
+        pass
+    return ShapeConfig(**spec["fields"])
+
+
+def all_cells():
+    """Every (arch x shape) cell of the registered archs, with its
+    applicability flag."""
+    for a in ARCHS.values():
+        for s in SHAPES.values():
+            yield a, s, shape_applies(a, s)

@@ -8,10 +8,16 @@ The sweep pipeline is three composable stages:
 The Scheduler turns registered (segment, combination) rows into unique
 :class:`JobSpec` programs; a ScoringBackend scores them and yields one
 :class:`JobOutcome` per job; the Recorder fans outcomes back out to
-member rows and writes them in batched transactions.  ``JobSpec`` and
-``JobOutcome`` keep the reference's JSON form.  The port is meshless: a
-job's ``mesh`` is always ``None`` and its ``mesh_key`` empty.  The process
-and remote backends that ship this form come with ROADMAP Queue 1 item 5.
+member rows and writes them in batched transactions.
+
+``JobSpec`` / ``JobOutcome`` are the reference's *serializable* wire
+format: pure-JSON ``to_json``/``from_json`` on both, arch and shape
+rebuilt from the config registry by name (``repro_torch.configs.registry.
+arch_from_spec``), the executor by :func:`executor_from_spec`.  The process
+workers (``process.py``) and the scoring server (``server.py``) speak it.
+The port is meshless: a job's ``mesh`` is always ``None`` and its
+``mesh_key`` empty, and an executor spec that carries a mesh raises
+(ROADMAP Queue 1 item 4).
 """
 from __future__ import annotations
 
@@ -22,9 +28,32 @@ from typing import Dict, Iterator, Optional, Sequence, Tuple
 from repro_torch.core.combinator import Combination, GlobalKnobs
 from repro_torch.core.segment import Segment
 
-#: version of the reference's JSON wire format (JobSpec/JobOutcome); kept
-#: as a constant for the process and remote backends (ROADMAP item 5)
+#: version of the JSON wire format: JobSpec/JobOutcome payloads, the
+#: process-worker init message and the scoring server's HTTP envelope all
+#: carry it.  The reference's v3 (failure ``kind`` and ``fallback`` on
+#: JobOutcome); a server rejects payloads of another version rather than
+#: score and cache a misdecoded spec under the wrong key.
 WIRE_VERSION = 3
+
+
+class WireVersionError(ValueError):
+    """A wire payload was produced by an incompatible format version."""
+
+
+class DeviceUnsatisfiable(ValueError):
+    """A wall-clock executor spec names a device this host does not have:
+    the port's counterpart of the reference's ``MeshUnsatisfiable``.  The
+    scoring server answers HTTP 400 at submit; such a spec is never scored
+    on another device."""
+
+
+def check_wire_version(payload: Dict):
+    """Validate an envelope's ``v`` field against :data:`WIRE_VERSION`."""
+    v = payload.get("v")
+    if v != WIRE_VERSION:
+        raise WireVersionError(
+            f"wire format version mismatch: payload has v={v!r}, "
+            f"this end speaks v={WIRE_VERSION}")
 
 
 #: structured outcome taxonomy (replaces string-matched statuses)
@@ -273,3 +302,65 @@ class ScoringBackend:
 
     def close(self):
         """Release workers/resources; idempotent."""
+
+
+def executor_to_spec(executor) -> Dict:
+    """Serialize an executor for reconstruction in the scoring process.
+
+    The dry run carries its whole ``Hardware`` (a calibrated view from
+    ``hardware_from_profile`` included): ``cache_tag`` embeds its name, so
+    a worker must score with the parent's model.  The wall clock carries
+    its device.  ``mesh`` is always ``None`` (meshless)."""
+    import dataclasses
+
+    from repro_torch.core.executor import (CrashExecutor, DryRunExecutor,
+                                           SleepExecutor, WallClockExecutor)
+    if isinstance(executor, DryRunExecutor):
+        return {"kind": "dryrun", "timeout_s": executor.timeout_s,
+                "hw": dataclasses.asdict(executor.hw), "mesh": None}
+    if isinstance(executor, WallClockExecutor):
+        return {"kind": "wallclock", "timeout_s": executor.timeout_s,
+                "repeats": executor.repeats,
+                "device": str(executor.device), "mesh": None}
+    if isinstance(executor, SleepExecutor):
+        return {"kind": "sleep", "sleep_s": executor.sleep_s,
+                "timeout_s": executor.timeout_s}
+    if isinstance(executor, CrashExecutor):
+        return {"kind": "crash", "timeout_s": executor.timeout_s}
+    raise TypeError(f"no wire spec for executor {type(executor).__name__} "
+                    f"(process backend supports dryrun/wallclock)")
+
+
+def executor_from_spec(spec: Dict, *, allow_test: bool = False):
+    """Rebuild an executor in the scoring process.
+
+    A spec with a mesh raises (ROADMAP Queue 1 item 4).  A wall-clock spec
+    whose device this host lacks raises :class:`DeviceUnsatisfiable` (the
+    server's HTTP 400): it is never timed on another device.
+
+    ``allow_test`` admits the fault-injection executors (sleep/crash).
+    Local process workers pass True: they trust their parent.  The scoring
+    server deserializing *client* specs keeps the default: ``{"kind":
+    "crash"}`` from a client would otherwise kill every worker."""
+    from repro_torch.core.combinator import require_meshless
+    from repro_torch.core.cost_model import H100, Hardware
+    from repro_torch.core.executor import (CrashExecutor, DryRunExecutor,
+                                           SleepExecutor, WallClockExecutor)
+    kind = spec["kind"]
+    require_meshless(spec.get("mesh"))
+    if kind == "dryrun":
+        hw = Hardware(**spec["hw"]) if spec.get("hw") else H100
+        return DryRunExecutor(hw, timeout_s=spec.get("timeout_s"))
+    if kind == "wallclock":
+        try:
+            return WallClockExecutor(spec.get("device", "cuda"),
+                                     repeats=spec.get("repeats", 5),
+                                     timeout_s=spec.get("timeout_s"))
+        except RuntimeError as e:          # resolve_device: no such device
+            raise DeviceUnsatisfiable(str(e)) from None
+    if allow_test and kind == "sleep":
+        return SleepExecutor(sleep_s=spec.get("sleep_s", 3600.0),
+                             timeout_s=spec.get("timeout_s"))
+    if allow_test and kind == "crash":
+        return CrashExecutor(timeout_s=spec.get("timeout_s"))
+    raise ValueError(f"unknown executor kind {kind!r}")

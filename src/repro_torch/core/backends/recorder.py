@@ -25,7 +25,8 @@ from repro_torch.core.db import SweepDB
 class Recorder:
     def __init__(self, db: SweepDB, project: str, report, *,
                  shape_key: str = "", mesh_key: str = "",
-                 use_cache: bool = True, batch: int = 64):
+                 use_cache: bool = True, batch: int = 64,
+                 fault_plan=None):
         self.db = db
         self.project = project
         self.report = report
@@ -33,6 +34,8 @@ class Recorder:
         self.mesh_key = mesh_key
         self.use_cache = use_cache
         self.batch = max(1, int(batch))
+        #: FaultPlan consulted at "recorder.flush" (tests only)
+        self.fault_plan = fault_plan
         self._rows: List[Dict] = []
         self._cache: List[Dict] = []
 
@@ -80,8 +83,12 @@ class Recorder:
                                "status": out.status, "cost": out.cost,
                                "error": out.error})
         rep = self.report
-        # extra dispatches of the scheduler's transient retry rounds
+        # degraded-mode accounting: retries anywhere in the pipeline
+        # (requeue, scheduler rounds, fallback handoff) and jobs a local
+        # backend picked up after the remote budget ran out
         rep.n_transient_retried += max(0, out.attempts - 1)
+        if out.fallback:
+            rep.n_fallback_local += len(group.members)
         if out.status == FAILED:
             kind = out.kind or \
                 ("transient" if out.transient else "deterministic")
@@ -114,6 +121,9 @@ class Recorder:
             self.flush()
 
     def flush(self):
+        if self.fault_plan is not None and \
+                self.fault_plan.fires("recorder.flush") is not None:
+            raise RuntimeError("fault injection: recorder flush crashed")
         if self._rows:
             self.db.record_many(self.project, self._rows)
             self._rows = []

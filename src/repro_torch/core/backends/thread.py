@@ -34,23 +34,3 @@ class ThreadBackend(ScoringBackend):
                 cost=res.cost.as_dict() if res.cost is not None else None,
                 error=res.error, transient=res.transient)
 
-
-BACKENDS = ("thread", "sequential")
-PENDING = ("backend {!r}: only 'thread' and 'sequential' are ported; the "
-           "process and remote backends and the fallback come with ROADMAP "
-           "Queue 1 item 5 (core/backends/*)")
-
-
-def make_backend(name, executor, cfg, shape, *, workers=1, prune=False,
-                 prune_margin=0.1, fallback=None, **_unused):
-    """``"thread"`` (default) or ``"sequential"`` (one worker, no pool).
-    Any other name, or a ``fallback``, raises naming ROADMAP item 5."""
-    if fallback is not None:
-        raise ValueError(PENDING.format(f"fallback={fallback}"))
-    if name in (None, "thread"):
-        return ThreadBackend(executor, cfg, shape, workers=workers,
-                             prune=prune, prune_margin=prune_margin)
-    if name == "sequential":
-        return ThreadBackend(executor, cfg, shape, workers=1,
-                             prune=prune, prune_margin=prune_margin)
-    raise ValueError(PENDING.format(name))

@@ -311,6 +311,55 @@ class WallClockExecutor:
         return t
 
 
+class SleepExecutor:
+    """Deterministic straggler: sleeps ``sleep_s`` per job *without* arming
+    the deadline, the stand-in for a hung native call that SIGALRM cannot
+    interrupt.  Exercises the process backend's hard (kill-based) timeout
+    in tests; never used in real sweeps."""
+
+    parallel_safe = True
+    n_chips = 1
+
+    def __init__(self, sleep_s: float = 3600.0,
+                 timeout_s: Optional[float] = None):
+        self.sleep_s = sleep_s
+        self.timeout_s = timeout_s
+
+    @property
+    def cache_tag(self) -> str:
+        return f"sleep:{self.sleep_s}"
+
+    def score_segment(self, cfg: ArchConfig, shape: ShapeConfig,
+                      seg: Segment, combo: Combination,
+                      knobs: Optional[GlobalKnobs] = None,
+                      mesh=None) -> CostTerms:
+        time.sleep(self.sleep_s)
+        return CostTerms(compute_s=self.sleep_s)
+
+
+class CrashExecutor:
+    """Kills its own process on every job, the stand-in for a dying
+    worker: exercises the process backend's crash detection and its
+    requeue-once-then-fail policy in tests; never used in real sweeps."""
+
+    parallel_safe = True
+    n_chips = 1
+
+    def __init__(self, timeout_s: Optional[float] = None):
+        self.timeout_s = timeout_s
+
+    @property
+    def cache_tag(self) -> str:
+        return "crash"
+
+    def score_segment(self, cfg: ArchConfig, shape: ShapeConfig,
+                      seg: Segment, combo: Combination,
+                      knobs: Optional[GlobalKnobs] = None,
+                      mesh=None) -> CostTerms:
+        import os
+        os._exit(13)
+
+
 # --- the sweep runner -----------------------------------------------------------
 
 # One unique program to score; ``segments`` lists the incumbent scopes of

@@ -9,9 +9,14 @@ joint argmin over the swept GlobalKnobs grid.
 The sweep runs the three-stage pipeline of ``repro_torch.core.backends``:
 the **Scheduler** groups rows that build the same program, resolves whole
 groups from the persistent ``score_cache`` and orders the rest
-cheapest-lower-bound-first; the **ScoringBackend** (``thread`` or
-``sequential``) scores the unique programs; the **Recorder** fans
-outcomes back out to the rows and writes them in batches.
+cheapest-lower-bound-first; the **ScoringBackend** scores the unique
+programs: ``thread`` (soft off-main-thread deadline), ``sequential`` (one
+worker, no pool), ``process`` (spawned workers with a hard kill-based
+timeout and requeue-once-then-fail; the pool stays warm across sweeps
+until :meth:`ComParTuner.close`) or ``remote`` (ship jobs to a sweep
+scoring server, ``sweep(remote_url=...)``, which resolves them against ITS
+shared score cache first); the **Recorder** fans outcomes back out to the
+rows and writes them in batches.
 
 Beside it, as in the reference: the kernel autotuner
 (``sweep(kernel_space=)``, ``kernels/autotune.py``), the static analyzer
@@ -21,8 +26,7 @@ Beside it, as in the reference: the kernel autotuner
 
 The port is meshless, on one device.  What the reference sweeps beyond
 that raises, naming the ROADMAP item that brings it: ``mesh``/
-``mesh_space`` (Queue 1 item 4); ``remote_url`` and the process/remote
-backends (item 5).
+``mesh_space`` (Queue 1 item 4).
 """
 from __future__ import annotations
 
@@ -63,7 +67,7 @@ class SweepReport:
     n_scored: int = 0       # programs that actually ran and were scored
     n_cached: int = 0       # rows served from the persistent score cache
     n_shared: int = 0       # rows that shared an in-run score
-    n_transient: int = 0    # rows failed by a deadline (retryable)
+    n_transient: int = 0    # rows failed by deadline/crash (retryable)
     n_static: int = 0       # rows rejected by the static analyzer before
                             # dispatch (static_checks="strict")
     n_inapplicable: int = 0  # (segment, combination) pairs dropped because
@@ -71,9 +75,13 @@ class SweepReport:
     n_knob_points: int = 1  # GlobalKnobs points swept (the RTL axis)
     paper_count: int = 0    # the paper's formula, an upper bound
     elapsed_s: float = 0.0
-    n_transient_retried: int = 0    # extra dispatches of transient retries
-    #: failure-kind histogram over FAILED rows ("deterministic",
-    #: "transient")
+    #: degraded-mode accounting: a sweep that limped home must say so
+    n_fallback_local: int = 0       # rows re-scored locally after the
+                                    # remote retry budget ran out
+    n_transient_retried: int = 0    # extra dispatches spent on transient
+                                    # recovery (requeues + retry rounds)
+    #: failure-kind histogram over FAILED rows ("deadline", "crash",
+    #: "mesh", "unreachable", "server", "deterministic", "transient")
     failure_kinds: Dict[str, int] = field(default_factory=dict)
     #: per-rule histogram over statically diagnosed rows (strict and warn
     #: modes; one count per row per distinct rule): see
@@ -111,6 +119,8 @@ class SweepReport:
             s += f" inapplicable={self.n_inapplicable}"
         if self.n_transient_retried:
             s += f" transient_retried={self.n_transient_retried}"
+        if self.n_fallback_local:
+            s += f" fallback_local={self.n_fallback_local}"
         if self.failure_kinds:
             kinds = ",".join(f"{k}:{v}" for k, v in
                              sorted(self.failure_kinds.items()))
@@ -134,6 +144,9 @@ class BackendOptions:
     plus a non-default bare twin raises."""
     backend: str = "thread"
     workers: int = 1
+    remote_url: Optional[str] = None
+    remote_token: Optional[str] = None
+    fallback: Optional[str] = None
     retry: Optional[object] = None          # backends.RetryPolicy
     transient_retries: Optional[int] = None
 
@@ -229,6 +242,8 @@ class ComParTuner:
         #: the latest sweep's kernel-autotuner verdict (None = no kernel
         #: axis): bounds are recomputed with the floors the Scheduler used
         self._kernel_tuning = None
+        #: cached ScoringBackends (warm process pools): see _engine()
+        self._engines: Dict[Tuple, object] = {}
 
     # ------------------------------------------------------------------
     def sweep(self, providers: Optional[Sequence[str]] = None,
@@ -244,6 +259,7 @@ class ComParTuner:
               search: Optional[SearchOptions] = None,
               workers: int = 1,
               remote_url: Optional[str] = None,
+              remote_token: Optional[str] = None,
               fallback: Optional[str] = None,
               retry=None,
               transient_retries: Optional[int] = None,
@@ -266,10 +282,21 @@ class ComParTuner:
                           ``None`` = the single point ``knobs``.
         ``boundary_costs``  fuse by Viterbi over boundary costs (all 0
                           meshless: the argmin's plan)
-        ``backend``       ``"thread"`` (default) | ``"sequential"``;
-                          ``workers`` threads (1 for the wall clock)
-        ``retry`` / ``transient_retries``  in-sweep retry rounds of
-                          transient (deadline) failures
+        ``backend``       ``"thread"`` (default) | ``"sequential"`` |
+                          ``"process"`` | ``"remote"``; ``workers``
+                          threads or spawned processes (1 for the wall
+                          clock, whose timings would contend)
+        ``remote_url``    sweep scoring server URL (``backends/server.py``);
+                          implies ``backend="remote"``
+        ``remote_token``  shared-secret bearer token of a ``--token``
+                          scoring server
+        ``fallback``      local backend name (``thread`` | ``sequential``
+                          | ``process``) re-scoring, in the same run, the
+                          jobs the remote backend failed transiently;
+                          counted in ``SweepReport.n_fallback_local``
+        ``retry`` / ``transient_retries``  the unified ``RetryPolicy``
+                          (remote budget, process requeues) and in-sweep
+                          retry rounds of transient failures
         ``kernel_space``  the hierarchical kernel axis: ``"auto"`` (the
                           built-in tile/variant grid) or a
                           ``{field: values}`` grid over ``kernel``/
@@ -294,14 +321,16 @@ class ComParTuner:
         ``share_scores``  one program per structurally identical group
         ``record_batch``  DB rows per write transaction
 
-        ``mesh_space`` (item 4), ``remote_url`` and ``fallback`` (item 5)
-        raise; the bundles carry none of them.
+        ``mesh_space`` raises (ROADMAP Queue 1 item 4).
         """
         t0 = time.time()
         if isinstance(backend, BackendOptions):
-            (backend, workers, retry, transient_retries) = _unbundle(
+            (backend, workers, remote_url, remote_token, fallback, retry,
+             transient_retries) = _unbundle(
                 backend,
-                {"workers": (workers, 1), "retry": (retry, None),
+                {"workers": (workers, 1), "remote_url": (remote_url, None),
+                 "remote_token": (remote_token, None),
+                 "fallback": (fallback, None), "retry": (retry, None),
                  "transient_retries": (transient_retries, None)},
                 "BackendOptions")
         if search is not None:
@@ -340,9 +369,13 @@ class ComParTuner:
             kernel_space = spec.kernel_space
         require_meshless(mesh_space, "mesh_space")
         if remote_url is not None:
-            raise NotImplementedError(
-                "remote_url= is not ported yet: ROADMAP Queue 1 item 5 "
-                "(core/backends/*)")
+            backend = "remote"
+        if backend == "remote" and not remote_url:
+            raise ValueError("backend='remote' needs remote_url "
+                             "(the sweep scoring server URL)")
+        if fallback is not None and backend != "remote":
+            raise ValueError("fallback= is the remote backend's degraded "
+                             "mode; it needs remote_url/backend='remote'")
         if workers > 1 and not self.executor.parallel_safe:
             log.warning("workers=%d -> 1: %s timings would contend on the "
                         "device", workers, type(self.executor).__name__)
@@ -414,7 +447,9 @@ class ComParTuner:
 
         self._execute(segs, per_seg_combos, points, rep, backend=backend,
                       kernel_tuning=tuning, static_checks=static_checks,
-                      workers=workers, fallback=fallback, retry=retry,
+                      workers=workers, remote_url=remote_url,
+                      remote_token=remote_token, fallback=fallback,
+                      retry=retry,
                       transient_retries=transient_retries, prune=prune,
                       prune_margin=prune_margin, use_cache=use_cache,
                       share_scores=share_scores, record_batch=record_batch)
@@ -521,6 +556,7 @@ class ComParTuner:
                  knob_points: Sequence[GlobalKnobs],
                  rep: SweepReport, *, backend: str, workers: int,
                  kernel_tuning=None, static_checks: str = "off",
+                 remote_url: Optional[str], remote_token: Optional[str],
                  fallback: Optional[str], retry,
                  transient_retries: Optional[int], prune: bool,
                  prune_margin: float, use_cache: bool,
@@ -542,29 +578,91 @@ class ComParTuner:
             use_cache=use_cache, batch=record_batch)
         work = scheduler.build(segs, per_seg_combos, recorder,
                                knob_points=knob_points)
-        engine = make_backend(backend, self.executor, self.cfg, self.shape,
-                              workers=workers, prune=prune,
-                              prune_margin=prune_margin, fallback=fallback)
+        engine, transient_engine = self._engine(
+            backend, workers=workers, remote_url=remote_url,
+            remote_token=remote_token, fallback=fallback, retry=retry,
+            prune=prune, prune_margin=prune_margin, use_cache=use_cache,
+            shape_key=sk, mesh_key=mk)
         policy = retry if retry is not None else RetryPolicy()
         rounds = policy.sweep_retries if transient_retries is None \
             else transient_retries
         try:
             drive(engine, work, recorder, transient_retries=rounds)
         finally:
+            # flush BEFORE closing: results already scored must land in
+            # the DB even if the engine's teardown throws, and a failing
+            # close must never eat the recorder flush (or vice versa)
             try:
                 recorder.flush()
             finally:
-                engine.close()
+                if transient_engine:
+                    engine.close()
+
+    # ------------------------------------------------------------------
+    def _engine(self, backend: str, *, workers: int,
+                remote_url: Optional[str], remote_token: Optional[str],
+                fallback: Optional[str], retry, prune: bool,
+                prune_margin: float, use_cache: bool,
+                shape_key: str, mesh_key: str):
+        """Build a ScoringBackend; cache process backends for warm-worker
+        reuse.
+
+        A process pool pays a torch import and a CUDA context per spawned
+        worker, so it is kept alive across ``sweep()`` calls on one tuner
+        (same engine parameters) and only torn down by :meth:`close`.
+        Thread/sequential/remote backends hold no local resources (the
+        remote backend's warm pool lives server-side) and are built per
+        sweep.  Returns ``(engine, transient)``; transient engines are
+        closed by the caller after the run.  A cached engine that survived
+        an aborted sweep culls its dead workers on reuse
+        (``ProcessBackend.run``)."""
+        kw = dict(
+            workers=workers, prune=prune, prune_margin=prune_margin,
+            timeout_s=getattr(self.executor, "timeout_s", None),
+            # workers get a read-only cache view only when the cache is
+            # on: use_cache=False must force real runs everywhere
+            db_path=self.db.path if use_cache else None,
+            shape_key=shape_key, mesh_key=mesh_key, remote_url=remote_url,
+            token=remote_token, retry=retry, fallback=fallback)
+        if backend != "process":
+            return make_backend(backend, self.executor, self.cfg,
+                                self.shape, **kw), True
+        key = (backend,) + tuple(sorted(kw.items()))
+        engine = self._engines.get(key)
+        if engine is None:
+            engine = make_backend(backend, self.executor, self.cfg,
+                                  self.shape, **kw)
+            self._engines[key] = engine
+        return engine, False
 
     def close(self):
-        """Nothing to release: the thread backends hold no workers between
-        sweeps.  Kept for the reference's API and context manager."""
+        """Release cached scoring backends (warm process-worker pools).
+        Idempotent and exception-safe: one backend's failing teardown
+        never leaks the others' worker pools.  Also runs on GC and via
+        the context-manager exit."""
+        engines, self._engines = self._engines, {}
+        first_err = None
+        for engine in engines.values():
+            try:
+                engine.close()
+            except Exception as e:           # keep releasing the rest
+                log.warning("engine close failed: %s", e)
+                if first_err is None:
+                    first_err = e
+        if first_err is not None:
+            raise first_err
 
     def __enter__(self) -> "ComParTuner":
         return self
 
     def __exit__(self, *exc):
         self.close()
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
 
     # ------------------------------------------------------------------
     def baselines(self, knobs: GlobalKnobs = GlobalKnobs(), *,

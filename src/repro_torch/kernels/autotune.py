@@ -33,7 +33,10 @@ The CUDA kernels ignore ``block_q``, ``block_k`` and ``mlstm_chunk``
 op's grid is one program.  It is run once per (op, shape) and its one
 outcome recorded under every ``cuda`` variant key (so ``keeps`` sees the
 reference's key set and no noise ranks identical programs); the ``plain``
-variants differ by tile and are timed one by one.
+variants differ by tile and are timed one by one.  A segment's top k
+therefore counts programs, not keys (``_top_programs``): its tied ``cuda``
+keys survive together beside the next cheapest program, where the
+reference's top k keys are k Pallas programs.
 
 Cache key format (the reference's)::
 
@@ -442,6 +445,33 @@ class KernelTuning:
             clause_schedule(clause, self.fields[seg_name]), 0.0)
 
 
+def schedule_program(skey: str, ops) -> Tuple[Tuple[str, str], ...]:
+    """The programs a segment schedule runs, one per op: all of an op's
+    ``cuda`` tile keys are one program (the kernels ignore the tiles),
+    each ``plain`` tile key its own."""
+    sched = dict(p.split("=", 1) for p in skey.split(","))
+    return tuple(
+        (op, "cuda" if sched["kernel"] == "cuda" else
+         schedule_key({f: sched[f] for f in OP_FIELDS[op]}))
+        for op in sorted(ops))
+
+
+def _top_programs(ranked: List[Tuple[float, str]], ops, top_k: int):
+    """Every key of the ``top_k`` cheapest distinct programs, walking
+    ``ranked`` in order.  The reference keeps ``top_k`` keys, each its
+    own Pallas program; here tied ``cuda`` keys share one program, so
+    they survive together and never crowd out the next program."""
+    seen, keep = set(), set()
+    for _, skey in ranked:
+        prog = schedule_program(skey, ops)
+        if prog not in seen:
+            if len(seen) >= max(1, int(top_k)):
+                break
+            seen.add(prog)
+        keep.add(skey)
+    return keep
+
+
 def tune_segments(db, cfg, shape, segs, space: Dict[str, Tuple],
                   executor, top_k: int = 2,
                   use_cache: bool = True) -> KernelTuning:
@@ -449,7 +479,8 @@ def tune_segments(db, cfg, shape, segs, space: Dict[str, Tuple],
 
     Per segment: enumerate the schedule grid over the union of its ops'
     tuned fields, score each schedule as ``sum_op(count * time)`` from
-    the per-op measurements, keep the ``top_k`` cheapest.  Schedules
+    the per-op measurements, keep the ``top_k`` cheapest programs (every
+    key of each: ``_top_programs``).  Schedules
     with any failed op variant are excluded (ComPar rejects failed
     combinations); a segment whose schedules ALL failed stays
     unrestricted: degraded, loud, never wrong.
@@ -520,7 +551,7 @@ def tune_segments(db, cfg, shape, segs, space: Dict[str, Tuple],
             per_segment[seg.name] = {"schedules": n_sched, "kept": n_sched}
             continue
         ranked.sort()                       # (cost, key): deterministic ties
-        keep = {k for _, k in ranked[:max(1, int(top_k))]}
+        keep = _top_programs(ranked, ops, top_k)
         out.fields[seg.name] = fields
         out.surviving[seg.name] = keep
         if floors:

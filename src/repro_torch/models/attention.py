@@ -45,18 +45,30 @@ def _mask(pos_q, pos_k, window: int):
     return m
 
 
-def naive_attention(q, k, v, *, pos_q, pos_k, window: int = 0):
-    """q: (B,Sq,H,D), k/v: (B,Sk,KV,D) -> (B,Sq,H,D)."""
+def _heads_first(t):
+    """(B,S,KV,D) -> f32 (B,KV,S,D), contiguous: the layout the score and
+    output products read without a copy of their own."""
+    return t.float().transpose(1, 2).contiguous()
+
+
+def _attend(q, kh, vh, *, pos_q, pos_k, window: int):
+    """q: (B,Sq,H,D), kh/vh: f32 (B,KV,Sk,D) -> (B,Sq,H,D)."""
     B, Sq, H, D = q.shape
-    KV = k.shape[2]
+    KV = kh.shape[1]
     G = H // KV
     qg = q.reshape(B, Sq, KV, G, D).float()
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * (D ** -0.5)
+    s = torch.einsum("bqkgd,bksd->bkgqs", qg, kh) * (D ** -0.5)
     m = _mask(pos_q, pos_k, window)
     s = torch.where(m, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    o = torch.einsum("bkgqs,bksd->bqkgd", p, vh)
     return o.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def naive_attention(q, k, v, *, pos_q, pos_k, window: int = 0):
+    """q: (B,Sq,H,D), k/v: (B,Sk,KV,D) -> (B,Sq,H,D)."""
+    return _attend(q, _heads_first(k), _heads_first(v), pos_q=pos_q,
+                   pos_k=pos_k, window=window)
 
 
 def chunked_attention(q, k, v, *, pos_q, pos_k, window: int = 0,
@@ -76,18 +88,22 @@ def chunked_attention(q, k, v, *, pos_q, pos_k, window: int = 0,
     k_span = max(k_span, q_chunk)
     # a window covering the whole K range reads K/V directly
     slice_k = bool(window) and k_span < Sk
+    # upcast and lay out K/V once: per chunk, each product would copy them
+    # and autograd would keep every copy (nq x S memory; the reference's
+    # scan keeps its loop-invariant residuals once)
+    kh, vh = _heads_first(k), _heads_first(v)
     outs = []
     for i in range(nq):
         lo = i * q_chunk
         qs, pq = q[:, lo:lo + q_chunk], pos_q[lo:lo + q_chunk]
         if slice_k:
             start = min(max(lo + q_chunk - k_span, 0), Sk - k_span)
-            ks, vs = k[:, start:start + k_span], v[:, start:start + k_span]
+            ks = kh[:, :, start:start + k_span]
+            vs = vh[:, :, start:start + k_span]
             pk = pos_k[start:start + k_span]
         else:
-            ks, vs, pk = k, v, pos_k
-        outs.append(naive_attention(qs, ks, vs, pos_q=pq, pos_k=pk,
-                                    window=window))
+            ks, vs, pk = kh, vh, pos_k
+        outs.append(_attend(qs, ks, vs, pos_q=pq, pos_k=pk, window=window))
     return torch.cat(outs, dim=1)
 
 

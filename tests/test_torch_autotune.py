@@ -8,7 +8,11 @@ Exact, with the clause ``kernel`` names mapped (``"plain"`` <->
 kind; ``tune_segments`` with ``_measure_one`` replaced, in both
 packages, by one deterministic table (the same ``fields``, ``surviving``,
 ``floors`` and report; the table gives every ``cuda``/``pallas`` variant
-of an op one outcome, as the port's CUDA kernels ignore the tiles); and a
+of an op one outcome, as the port's CUDA kernels ignore the tiles).  One
+departure: the port's top k counts programs, and all of an op's ``cuda``
+keys are one program, so its survivors are the reference's survivors
+widened to whole programs (``_with_ties``: the reference's own ranking,
+walked program by program).  And a
 sweep with ``kernel_space`` registers the reference's rows (a row id
 hashes the clause, which names the kernel, so the port's rows are
 compared through their reference-named twins).
@@ -126,6 +130,43 @@ def _patch_tables(monkeypatch):
     return calls
 
 
+def _program(vkey: str) -> str:
+    """A reference schedule's program: every ``pallas`` key of a segment
+    is the port's one ``cuda`` program (the kernel field is shared by all
+    of a segment's ops); each ``xla`` key is its own."""
+    return "pallas" if "kernel=pallas" in vkey.split(",") else vkey
+
+
+def _with_ties(run, top_k):
+    """The reference's tuning at ``top_k`` with each segment's survivors
+    widened to the port's rule (a departure from the reference): walk the
+    reference's own ranking (a key's rank is the least k whose survivors
+    hold it) and keep every key of the first ``top_k`` distinct programs,
+    so tied ``pallas`` keys survive together beside the next program."""
+    j = run(top_k)
+    n = max([r["schedules"] for r in j.report["per_segment"].values()] +
+            [1])
+    rank = {}
+    for k in range(1, n + 1):
+        for seg, keep in run(k).surviving.items():
+            for key in keep:
+                rank.setdefault(seg, {}).setdefault(key, k)
+    per_segment = dict(j.report["per_segment"])
+    for seg, ranks in rank.items():
+        progs, keep = [], set()
+        for key in sorted(ranks, key=lambda key: (ranks[key], key)):
+            if _program(key) not in progs:
+                if len(progs) == top_k:
+                    break
+                progs.append(_program(key))
+            keep.add(key)
+        assert j.surviving[seg] <= keep
+        j.surviving[seg] = keep
+        per_segment[seg] = dict(per_segment[seg], kept=len(keep))
+    j.report = dict(j.report, per_segment=per_segment)
+    return j
+
+
 def _same_tuning(t, j):
     assert t.fields == j.fields
     assert t.surviving == {s: {_port_key(k) for k in v}
@@ -152,8 +193,9 @@ def test_tune_segments_matches_reference_on_one_table(monkeypatch, name):
             t = AT.tune_segments(tdb, tcfg, tsh, fragment(tcfg),
                                  TC.port_space(space), _TableHw(),
                                  top_k=top_k)
-            j = JAT.tune_segments(jdb, jcfg, jsh, jfragment(jcfg), space,
-                                  _TableHw(), top_k=top_k)
+            j = _with_ties(lambda k: JAT.tune_segments(
+                jdb, jcfg, jsh, jfragment(jcfg), space, _TableHw(),
+                top_k=k), top_k)
             _same_tuning(t, j)
             if top_k == 1:
                 # the cold run: the port runs each op's cuda program once
@@ -163,6 +205,28 @@ def test_tune_segments_matches_reference_on_one_table(monkeypatch, name):
                 assert t.report["n_timed"] == t.report["n_variants"]
             else:                  # the DB answers every later run
                 assert calls == [] and t.report["n_timed"] == 0
+
+
+def test_top_k_counts_tied_cuda_keys_as_one_program():
+    """Two tied cuda keys are one program: at top_k=2 both survive beside
+    the cheapest plain schedule, which the reference's key count drops."""
+    ops = {"flash_attention": 4}
+    ranked = sorted([
+        (1.0, "block_k=512,block_q=256,kernel=cuda"),
+        (1.0, "block_k=1024,block_q=256,kernel=cuda"),
+        (3.0, "block_k=512,block_q=256,kernel=plain"),
+        (4.0, "block_k=1024,block_q=256,kernel=plain")])
+    assert AT._top_programs(ranked, ops, 2) == {
+        "block_k=512,block_q=256,kernel=cuda",
+        "block_k=1024,block_q=256,kernel=cuda",
+        "block_k=512,block_q=256,kernel=plain"}
+    assert AT._top_programs(ranked, ops, 1) == {
+        "block_k=512,block_q=256,kernel=cuda",
+        "block_k=1024,block_q=256,kernel=cuda"}
+    assert len(AT._top_programs(ranked, ops, 16)) == 4
+    assert AT.schedule_program(ranked[0][1], ops) == \
+        AT.schedule_program(ranked[1][1], ops) == \
+        (("flash_attention", "cuda"),)
 
 
 def test_cuda_variants_share_one_program(monkeypatch):
@@ -213,6 +277,9 @@ def _ref_rid(r):
                                         ("granite-8b", "decode_32k")])
 def test_kernel_sweep_registers_reference_rows(monkeypatch, name, sname):
     _patch_tables(monkeypatch)
+    tune = JAT.tune_segments
+    monkeypatch.setattr(JAT, "tune_segments", lambda *a, top_k=2, **k:
+                        _with_ties(lambda n: tune(*a, top_k=n, **k), top_k))
     jcfg, tcfg = jget_arch(name).smoke(), get_arch(name).smoke()
     jsh, tsh = jget_shape(sname).smoke(), get_shape(sname).smoke()
     kw = dict(clause_space={"remat": ("none", "dots")}, max_flags=1,

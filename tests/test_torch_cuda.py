@@ -783,3 +783,128 @@ def test_cuda_lint_errors_match_the_wrapper_raises(dev, case):
                 with pytest.raises((ValueError, TypeError)) as exc:
                     fn(*args)
             assert str(exc.value) == errs[0].message
+
+
+# --- the process and remote backends on the card -------------------------------
+
+def _stack_job(cfg, kernel="cuda"):
+    from repro_torch.core.backends import JobSpec
+    seg = next(s for s in fragment(cfg) if s.kind == "stack")
+    return JobSpec(f"g/{kernel}", seg, Combination(
+        "fsdp", frozenset(), SegmentClause(kernel=kernel)),
+        segments=(seg.name,))
+
+
+def _free_after(dev, free0, slack=64 * 2**20, wait_s=20.0):
+    """The card's free memory, polled until it is back within ``slack``
+    of ``free0`` (a dead process's context is freed as it exits)."""
+    import time
+    t0 = time.monotonic()
+    while True:
+        torch.cuda.empty_cache()
+        free = torch.cuda.mem_get_info(dev)[0]
+        if abs(free - free0) <= slack or time.monotonic() - t0 > wait_s:
+            return free
+        time.sleep(0.2)
+
+
+def test_process_worker_scores_a_cuda_job_after_the_parent_used_cuda(dev):
+    """The parent holds a CUDA context; "auto" never forks it: the spawned
+    worker times the cuda job on the card and its flash-attention launches
+    ride back on its shutdown acknowledgement."""
+    from repro_torch.core.backends import ProcessBackend
+    torch.zeros(1, device=dev).add_(1)
+    torch.cuda.synchronize(dev)
+    cfg, shape = get_arch("granite-8b").smoke(), \
+        get_shape("train_4k").smoke()
+    backend = ProcessBackend(WallClockExecutor(dev, repeats=3), cfg, shape,
+                             workers=1, timeout_s=120, start_method="auto")
+    try:
+        outs = list(backend.run([_stack_job(cfg)]))
+    finally:
+        backend.close()
+    assert [(o.status, o.attempts) for o in outs] == [("done", 1)], outs
+    assert outs[0].cost["total_s"] > 0
+    assert backend.launches["flash_attention"] == 4 * cfg.num_layers
+
+
+def test_killed_worker_requeues_and_its_memory_comes_back(dev):
+    """A FaultPlan kills the worker holding a wall-clock cuda job: the job
+    completes on a fresh worker, the card's free memory after close()
+    matches the reading before the pool, and the parent's CUDA works."""
+    from repro_torch.core.backends import ProcessBackend
+    from repro_torch.core.backends.faults import KILL, FaultPlan, FaultRule
+    cfg, shape = get_arch("granite-8b").smoke(), \
+        get_shape("train_4k").smoke()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    free0 = torch.cuda.mem_get_info(dev)[0]
+    plan = FaultPlan({"process.kill_worker": [FaultRule(KILL, at=(1,))]})
+    backend = ProcessBackend(WallClockExecutor(dev, repeats=3), cfg, shape,
+                             workers=1, timeout_s=120, fault_plan=plan)
+    try:
+        outs = list(backend.run([_stack_job(cfg)]))
+    finally:
+        backend.close()
+    assert [(o.status, o.attempts) for o in outs] == [("done", 2)], outs
+    assert plan.events == [("process.kill_worker", 1, KILL)]
+    assert len({w for _, w in backend.dispatch_log}) == 2
+    free = _free_after(dev, free0)
+    assert abs(free - free0) <= 64 * 2**20, (free0, free)
+    x = torch.ones(256, device=dev)
+    assert float(x.sum()) == 256.0
+
+
+def test_deadline_interrupted_job_then_a_clean_median(dev):
+    """SIGALRM interrupts a wall-clock job between launches with device
+    work still queued; the next job's synchronize and the collection after
+    the failure keep that tail out of its median and its memory."""
+    from repro_torch.core.executor import CombinationFailed
+    cfg = dataclasses.replace(get_arch("granite-8b"), num_layers=1)
+    shape = ShapeConfig("train-1x2048", 2048, 1, "train")
+    seg = fragment(cfg)[1]
+    combo = Combination("fsdp", frozenset(), SegmentClause(kernel="cuda"))
+    ex = WallClockExecutor(dev, repeats=5, timeout_s=120)
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    m0 = ex.score_segment(cfg, shape, seg, combo).total_s
+    heavy = dataclasses.replace(cfg, num_layers=4)
+    cut = WallClockExecutor(dev, repeats=50, timeout_s=1.0)
+    with pytest.raises(CombinationFailed, match="deadline") as ei:
+        cut.score_segment(heavy, ShapeConfig("train-1x4096", 4096, 1,
+                                             "train"),
+                          fragment(heavy)[1], combo)
+    assert ei.value.transient
+    torch.cuda.synchronize(dev)
+    assert torch.cuda.memory_allocated(dev) - base < 64 * 2**20
+    m1 = ex.score_segment(cfg, shape, seg, combo).total_s
+    assert 0.67 < m1 / m0 < 1.5, (m0, m1)
+
+
+def test_cuda_wallclock_spec_scored_by_the_server(dev, tmp_path):
+    """A client's wall-clock cuda spec shipped to a loopback scoring
+    server is timed on the server's card (its cache tag names that card)
+    and served from its cache to a second client."""
+    from repro_torch.core.backends import RemoteBackend, env_key, shape_key
+    from repro_torch.core.backends.server import SweepScoringServer
+    cfg, shape = get_arch("granite-8b").smoke(), \
+        get_shape("train_4k").smoke()
+    ex = WallClockExecutor(dev, repeats=3)
+    srv = SweepScoringServer(str(tmp_path / "srv.db"), workers=1)
+    srv.start()
+    try:
+        job = dataclasses.replace(_stack_job(cfg), signature="sig",
+                                  eff_cid="ec")
+        outs = []
+        for _ in range(2):
+            client = RemoteBackend(ex, cfg, shape, url=srv.url,
+                                   shape_key=shape_key(shape),
+                                   mesh_key=env_key(None, ex))
+            outs += list(client.run([job]))
+        stats = srv.stats()
+    finally:
+        srv.close()
+    assert [(o.status, o.cached) for o in outs] == \
+        [("done", False), ("done", True)], outs
+    assert outs[0].cost["total_s"] > 0
+    assert stats["n_compiled"] == 1 and stats["n_cache_hits"] == 1

@@ -12,8 +12,9 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 
-# imports every port module and chip_smoke.py in a fresh interpreter,
-# records what got loaded, then runs chip_smoke's main (no card here)
+# imports every port module, chip_smoke.py and tools/backends_timing.py in a
+# fresh interpreter, records what got loaded, then runs both scripts' main
+# (no card here)
 PROBE = r"""
 import contextlib, importlib, importlib.util, io, json, pkgutil, sys
 import repro_torch
@@ -24,13 +25,19 @@ for n in names:
 spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
 chip_smoke = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(chip_smoke)
+spec = importlib.util.spec_from_file_location("backends_timing", sys.argv[2])
+timing = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(timing)
+with contextlib.redirect_stderr(io.StringIO()):
+    timing_rc = timing.main(["--part", "tile"])
 bad = sorted(m for m in sys.modules
              if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
 out = io.StringIO()
 with contextlib.redirect_stdout(out):
     rc = chip_smoke.main([])
-print(json.dumps({"modules": len(names), "bad": bad, "rc": rc,
-                  "stdout": out.getvalue()}))
+print(json.dumps({"modules": len(names), "names": names, "bad": bad,
+                  "rc": rc, "stdout": out.getvalue(),
+                  "timing_rc": timing_rc}))
 """
 
 
@@ -38,7 +45,8 @@ print(json.dumps({"modules": len(names), "bad": bad, "rc": rc,
 def probe():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     r = subprocess.run([sys.executable, "-c", PROBE,
-                        str(ROOT / "chip_smoke.py")], env=env,
+                        str(ROOT / "chip_smoke.py"),
+                        str(ROOT / "tools" / "backends_timing.py")], env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     return json.loads(r.stdout.strip().splitlines()[-1])
@@ -49,6 +57,13 @@ def test_port_and_chip_smoke_import_neither_jax_nor_repro(probe):
     assert probe["bad"] == []
 
 
+def test_probe_covers_the_backends_and_examples(probe):
+    assert {f"repro_torch.core.backends.{m}" for m in
+            ("process", "remote", "server", "fallback", "faults")} | \
+        {f"repro_torch.examples.{m}" for m in
+         ("compar_sweep_json", "train_e2e")} <= set(probe["names"])
+
+
 def test_chip_smoke_fails_without_card(probe):
     if torch.cuda.is_available():
         pytest.skip("this machine has a card; the test is for one without")
@@ -56,12 +71,19 @@ def test_chip_smoke_fails_without_card(probe):
     assert '"ok": true' not in probe["stdout"]
 
 
+def test_timing_tool_fails_without_card(probe):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card; the test is for one without")
+    assert probe["timing_rc"] != 0
+
+
 def _entry_points():
     from repro_torch.configs import get_arch, get_shape
     from repro_torch.core import machine
     from repro_torch.core.tuner import ComParTuner
     from repro_torch.data.pipeline import SyntheticLM
-    from repro_torch.examples import quickstart, serve_batched
+    from repro_torch.examples import (compar_sweep_json, quickstart,
+                                      serve_batched, train_e2e)
     from repro_torch.launch.serve import default_plan, serve
     from repro_torch.launch.train import train
     from repro_torch.models.model import init_cache, model_specs
@@ -94,6 +116,10 @@ def _entry_points():
                                            get_shape("train_4k").smoke()),
         "examples.quickstart": lambda: quickstart.main(["--smoke"]),
         "examples.serve_batched": lambda: serve_batched.main([]),
+        "examples.compar_sweep_json": lambda: compar_sweep_json.main([]),
+        "examples.compar_sweep_json --backend process":
+            lambda: compar_sweep_json.main(["--backend", "process"]),
+        "examples.train_e2e": lambda: train_e2e.main(["--steps", "2"]),
         "core.machine": lambda: machine.main(["--tiny"]),
         "serve.registry": lambda: registry.main(["--db", ":memory:",
                                                  "--smoke"]),

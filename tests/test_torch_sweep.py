@@ -554,19 +554,15 @@ def test_op_counter_counts_every_product():
 
 
 def test_later_axes_raise_naming_their_roadmap_item():
-    """Only what is still pending raises: the process and remote backends
-    (item 5's rest) and meshes (item 4).  The kernel axis, the lint, the
-    registry and the machine model are held in tests/test_torch_{autotune,
-    analysis,registry,machine}.py."""
+    """Only what is still pending raises: meshes (item 4).  The process and
+    remote backends are held in tests/test_torch_{backends,remote,faults}
+    .py; the kernel axis, the lint, the registry and the machine model in
+    tests/test_torch_{autotune,analysis,registry,machine}.py."""
     cfg, shape = get_arch("granite-8b").smoke(), \
         get_shape("train_4k").smoke()
     tuner = ComParTuner(cfg, shape, device="cpu")
-    with pytest.raises(ValueError, match="item 5"):
-        tuner.sweep(["fsdp"], backend="process")
     with pytest.raises(NotImplementedError, match="item 4"):
         tuner.sweep(["fsdp"], mesh_space=[None, {"data": 2}])
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tuner.sweep(["fsdp"], remote_url="http://localhost:1")
     with pytest.raises(NotImplementedError, match="item 4"):
         ComParTuner(cfg, shape, device="cpu", mesh={"data": 2})
 
