@@ -13,14 +13,18 @@ phases (each failure exits non-zero and prints no result line):
             flash-attention at granite-8b's heads (H 32, KV 8, D 128), at
             recurrentgemma-2b's (H 10, KV 1, D 256, window 2048, also at
             S=4096 > window), at stablelm-3b's (H 32, KV 32, D 80), at
-            qwen3-moe-30b-a3b's (H 32, KV 4, D 128) and at kimi-k2-1t-a32b's
-            (H 64, KV 8, D 112), f32 (the FMA route) and bf16 (the wgmma
-            route), with TFLOP/s, against
+            qwen3-moe-30b-a3b's (H 32, KV 4, D 128), at kimi-k2-1t-a32b's
+            (H 64, KV 8, D 112), at chatglm3-6b's (H 32, KV 2, D 128), at
+            starcoder2-3b's (H 24, KV 2, D 128, window 4096, S=4096 and
+            8192), at phi-3-vision-4.2b's (H 32, KV 32, D 96) and at
+            musicgen-large's (H 32, KV 32, D 64), f32 (the FMA route) and
+            bf16 (the wgmma route: each bf16 row's route and, by the
+            profiler, its kernel's name), with TFLOP/s, against
             ``scaled_dot_product_attention``; flash-decode at granite-8b's
             heads (B=1 at pos 0, 17, 63 and 4095; B=8 at pos 4095; the
             tune path's B=8, Smax=2048 at pos 0 and 1024), at
             recurrentgemma-2b's (G=10, D=256) and at the two MoE archs'
-            heads (B=1, pos 63), with the CUDA
+            and the four dense archs' heads (B=1, pos 63), with the CUDA
             kernels of one call (one) and the kernel's plan (heads per CTA,
             slices, CTAs per slice); rglru at (1, 2048, 2560), an odd S,
             S=4096 and slow decay (log_a ~ -1e-4), with the device work of
@@ -86,6 +90,23 @@ phases (each failure exits non-zero and prints no result line):
             completes, batched == sequential token for token, flash-decode
             launches == 48 x prompt tokens; then the profile of decode
             steps.
+  dense   — every earlier model's weights freed; chatglm3-6b, starcoder2-3b,
+            phi-3-vision-4.2b and musicgen-large, one at a time, at full
+            width and depth, bf16, seeded random weights: ``make_prefill``
+            at B=1, S=2048, ``"cuda"`` plan, tokens or (phi-3-vision,
+            musicgen: the stub frontends) ``embeds`` as the pipeline draws
+            them: wall ms, peak memory, finite logits, flash-attention
+            launches == layers (starcoder2-3b again at S=8192, past its
+            4096 window); cut to 2 layers (views), the ``"cuda"`` plan
+            against the ``"plain"`` plan (from embeds: in f32, and in bf16
+            against the f32 run, see EMBEDS_BF16_ERR_RATIO);
+            ``ServeEngine`` (capacity 8, cache_len 2048) on 8 requests of
+            3-5 prompt tokens and 6 new:
+            batched == sequential, flash-decode launches == layers x
+            prompt tokens (0 for starcoder2-3b, whose windowed decode is
+            plain, as the reference's).  Then phi-3-vision-4.2b cut to 2
+            layers trains from ``embeds`` (B=1, S=2048, remat "dots"):
+            step-0 grads of the "cuda" plan against the "plain" plan.
   train   — the training path, ``"cuda"`` plans, seeded random weights,
             ``SyntheticLM`` batches: granite-8b at full width cut to 8
             layers (bf16, f32 AdamW state, B=1, S=4096, remat="dots"):
@@ -209,7 +230,7 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 PHASES = ("build", "kernels", "prefill", "serve", "trace",
           "prefill-recurrent", "serve-recurrent", "prefill-moe", "serve-moe",
-          "train", "sweep", "tune", "backends")
+          "dense", "train", "sweep", "tune", "backends")
 RECURRENT = ("recurrentgemma-2b", "xlstm-125m")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): memory rate, bf16 tensor-core
@@ -285,6 +306,29 @@ MOE_F32_ATOL_PER_STD, MOE_F32_RTOL = 1e-3, 2e-5
 # step reads every expert's weights: ~58 GB, >= 17 ms at 3.35 TB/s)
 SERVE_MOE_N, SERVE_MOE_PROMPT, SERVE_MOE_NEW = 8, (12, 20), 16
 TRAIN_MOE_LAYERS, TRAIN_MOE_S = 2, 4096
+# dense: the remaining dense archs, each served at full depth: prefill at
+# B=1, DENSE_S (starcoder2-3b also at DENSE_LONG_S, past its window); the
+# engine on DENSE_SERVE_N requests of DENSE_SERVE_PROMPT prompt tokens and
+# DENSE_SERVE_NEW new (admission is a host-bound loop of B=1 steps, ~60
+# ms a token on an H100, run twice for the batched == sequential gate: at
+# 6-10 prompt tokens and 8 new the engines took 43 of the phase's 54 s and
+# the whole run 1147 s of its 1200 s limit); DENSE_TRAIN cut to
+# DENSE_TRAIN_LAYERS trains from its stub frontend's embeds
+DENSE = ("chatglm3-6b", "starcoder2-3b", "phi-3-vision-4.2b",
+         "musicgen-large")
+DENSE_S, DENSE_LONG_S = 2048, 8192
+DENSE_SERVE_N, DENSE_SERVE_PROMPT, DENSE_SERVE_NEW = 8, (3, 5), 6
+DENSE_TRAIN, DENSE_TRAIN_LAYERS, DENSE_TRAIN_S = \
+    "phi-3-vision-4.2b", 2, 2048
+# a stub frontend's embeds (N(0, 1) x 0.02) leave the residual stream to
+# the layers' own outputs: the wgmma route's bf16 rounding of p is not
+# diluted by a unit-scale token embedding, and the 2-layer bf16 logits of
+# the two plans differ past PREFILL_ATOL (on an H100, phi-3-vision-4.2b:
+# max 0.056, mean 0.0078; chatglm3-6b from tokens: 0.032, 0.0038).  So an
+# embeds prefill is held in f32 pointwise (MOE_F32_ATOL_PER_STD, the FMA
+# route), and in bf16 by each plan's distance from the f32 plain run: the
+# cuda plan's max and mean within this ratio of the plain plan's own
+EMBEDS_BF16_ERR_RATIO = 2.0
 # sweep: the allocated memory a sweep may leave behind, and
 # recurrentgemma-2b's prefill sweep (B=1, its prefill-recurrent sequence)
 SWEEP_MEMORY_SLACK = 64 * 2**20
@@ -586,7 +630,9 @@ def _fa_checks(torch, rand, rows, failures, H, KV, D, cases):
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref as R
-    from repro_torch.kernels.flash_attention import flash_attention_fwd, route
+    from repro_torch.kernels.flash_attention import (WGMMA_HEAD_DIMS,
+                                                     flash_attention_fwd,
+                                                     route)
     from repro_torch.kernels.ops import attention_pairs
 
     dev = torch.device("cuda")
@@ -619,7 +665,7 @@ def _fa_checks(torch, rand, rows, failures, H, KV, D, cases):
                                                       enable_gqa=True)
             lib = cuda_ms(torch, sdpa)
             lib_dev, _ = device_ms(torch, sdpa)
-            dev_ms, _ = device_ms(torch, lambda: flash_attention_fwd(
+            dev_ms, kernels = device_ms(torch, lambda: flash_attention_fwd(
                 q, k, v, causal=True, window=window))
             pairs = attention_pairs(S, S, True, window)
             item = q.element_size()
@@ -627,12 +673,21 @@ def _fa_checks(torch, rand, rows, failures, H, KV, D, cases):
             flops = 4 * B * H * D * pairs
             bms, by = bound_ms(nbytes, flops, name)
             path = route(dt, D)
+            # a bf16 call at a wgmma head dim runs the wgmma kernel, as
+            # the profiler names it: no quiet fall back to the FMA route
+            if name == "bfloat16" and D in WGMMA_HEAD_DIMS and (
+                    path != "wgmma" or not any(
+                        f"fa_wgmma_kernel<{D}>" in kn for kn in kernels)):
+                ok = False
+                log(f"flash_attention bf16 D={D}: route {path}, kernels "
+                    f"{sorted(kernels)}: not the wgmma kernel")
             rows.append(dict(kernel="flash_attention", dtype=name, S=S, D=D,
                              H=H, KV=KV, window=window, max_abs_err=err,
                              ok=ok, ms=ms, device_ms=dev_ms,
                              plain_ms=plain, library_ms=lib,
                              library_device_ms=lib_dev, bound_ms=bms,
                              bound_by=by, cuda_route=path,
+                             cuda_kernels=sorted(kernels),
                              tflops=flops / ms * 1e-9))
             log(f"flash_attention {name} H={H} KV={KV} D={D} S={S} "
                 f"window={window} [{path}]: max_abs_err={err:.3g} "
@@ -744,6 +799,14 @@ def phase_kernels(torch, state):
     # qwen3-moe-30b-a3b's heads (G=8) and kimi-k2-1t-a32b's (D=112)
     _fa_checks(torch, rand, rows, failures, 32, 4, 128, ((2048, 0),))
     _fa_checks(torch, rand, rows, failures, 64, 8, 112, ((2048, 0),))
+    # the dense archs: chatglm3-6b (G=16), starcoder2-3b (G=12, its window
+    # 4096 at S=4096 and past it at S=8192), phi-3-vision-4.2b (MHA, D=96)
+    # and musicgen-large (MHA, D=64)
+    _fa_checks(torch, rand, rows, failures, 32, 2, 128, ((2048, 0),))
+    _fa_checks(torch, rand, rows, failures, 24, 2, 128,
+               ((4096, 4096), (8192, 4096)))
+    _fa_checks(torch, rand, rows, failures, 32, 32, 96, ((2048, 0),))
+    _fa_checks(torch, rand, rows, failures, 32, 32, 64, ((2048, 0),))
 
     # flash decode at granite-8b's heads (admission is B=1, pos ~63; long
     # caches at B=1 and 8; the tune phase's serving shape, B=8 and
@@ -758,6 +821,11 @@ def phase_kernels(torch, state):
     # admission of qwen3-moe-30b-a3b (G=8) and kimi-k2-1t-a32b (D=112)
     _fd_checks(torch, rand, rows, failures, 32, 4, 128, ((1, 2048, 63),))
     _fd_checks(torch, rand, rows, failures, 64, 8, 112, ((1, 2048, 63),))
+    # admission of the dense archs (chatglm3-6b, starcoder2-3b,
+    # phi-3-vision-4.2b, musicgen-large)
+    for h, kv, d in ((32, 2, 128), (24, 2, 128), (32, 32, 96),
+                     (32, 32, 64)):
+        _fd_checks(torch, rand, rows, failures, h, kv, d, ((1, 2048, 63),))
 
     # the two-shard LSE combine a sequence-sharded decode relies on
     for name, dt in dts.items():
@@ -1238,22 +1306,26 @@ def phase_prefill_recurrent(torch, state):
             _compare_plans_xlstm(torch, cfg, params, tokens)
 
 
-def _compare_plans(torch, cfg, params, tokens):
-    """bf16 logits of the "cuda" and "plain" plans, pointwise."""
+def _compare_plans(torch, cfg, params, inputs):
+    """bf16 logits of the "cuda" and "plain" plans, pointwise.  ``inputs``
+    is a tokens tensor or a batch ({"tokens"} or {"embeds"}).  A head tied
+    to the N(0, 1) embedding is held at PREFILL_REC_ATOL_PER_STD of the
+    plain logits' std, any other at PREFILL_ATOL."""
     from repro_torch.serve.step import make_prefill
-    outs = {k: make_prefill(cfg, plan)(params, {"tokens": tokens})
+    batch = inputs if isinstance(inputs, dict) else {"tokens": inputs}
+    outs = {k: make_prefill(cfg, plan)(params, batch)
             for k, plan in _plans(cfg).items()}
     plain = outs["plain"]
     std = float(plain.std())
-    atol = PREFILL_REC_ATOL_PER_STD * std
+    atol = PREFILL_REC_ATOL_PER_STD * std if cfg.tie_embeddings \
+        else PREFILL_ATOL
     diff = (outs["cuda"] - plain).abs()
     ok = bool(torch.isfinite(outs["cuda"]).all()) and bool(
         (diff <= atol + PREFILL_RTOL * plain.abs()).all())
     log(f"prefill {cfg.name} {cfg.num_layers} layers cuda vs plain plan: "
         f"max_abs_err={float(diff.max()):.4g} "
         f"mean_abs_err={float(diff.mean()):.3g}, logits std {std:.4g} "
-        f"(atol {atol:.4g} = {PREFILL_REC_ATOL_PER_STD} std, rtol "
-        f"{PREFILL_RTOL}) {'ok' if ok else 'FAIL'}")
+        f"(atol {atol:.4g}, rtol {PREFILL_RTOL}) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SmokeFailure(f"{cfg.name}: cuda plan disagrees with plain")
 
@@ -1533,24 +1605,26 @@ def _drop_share(torch, cfg, routes):
     return C, out
 
 
-def _prefill_once(torch, cfg, params, tokens, label, want_fa):
-    """``make_prefill`` under the "cuda" plan (after a warm-up): wall ms,
-    peak memory, finite logits of the right shape and exactly ``want_fa``
+def _prefill_once(torch, cfg, params, inputs, label, want_fa):
+    """``make_prefill`` under the "cuda" plan (after a warm-up) on a tokens
+    tensor or a batch ({"tokens"} or {"embeds"}): wall ms, peak memory,
+    finite logits of the right shape and exactly ``want_fa``
     flash-attention launches (and no other kernel)."""
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.serve.step import make_prefill
+    batch = inputs if isinstance(inputs, dict) else {"tokens": inputs}
     prefill = make_prefill(cfg, _plans(cfg)["cuda"])
-    prefill(params, {"tokens": tokens[:, :128]})        # warm-up
+    prefill(params, {k: t[:, :128] for k, t in batch.items()})  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
-    logits = prefill(params, {"tokens": tokens})
+    logits = prefill(params, batch)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    S = tokens.shape[1]
+    S = next(iter(batch.values())).shape[1]
     finite = bool(torch.isfinite(logits).all())
     log(f"prefill {label} B=1 S={S}: {dt * 1e3:.1f} ms ({S / dt:.0f} "
         f"tok/s), peak memory {peak / 2**30:.2f} GiB, logits "
@@ -1624,18 +1698,23 @@ def _compare_moe_plans(torch, cfg, params, tokens, label):
         raise SmokeFailure(f"{label}: cuda plan disagrees with plain")
 
 
-def _compare_f32(torch, cfg, params, tokens, label):
-    """The same in f32 on a cast copy, pointwise without replay (see
-    MOE_F32_ATOL_PER_STD); the routing agreement is read beside it."""
+def _compare_f32(torch, cfg, params, inputs, label):
+    """The same in f32 on a cast copy of the weights and of ``inputs`` (a
+    tokens tensor or a batch), pointwise without replay (see
+    MOE_F32_ATOL_PER_STD); the routing agreement is read beside it.
+    Returns the plain plan's f32 logits."""
     from repro_torch.models.params import tree_map
     from repro_torch.serve.step import make_prefill
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     p32 = tree_map(lambda t: t.float(), params)
+    batch = inputs if isinstance(inputs, dict) else {"tokens": inputs}
+    batch = {k: t.float() if t.is_floating_point() else t
+             for k, t in batch.items()}
     routes = {}
     outs = {}
     for k, plan in _plans(cfg32).items():
         with _routes("record", routes.setdefault(k, [])):
-            outs[k] = make_prefill(cfg32, plan)(p32, {"tokens": tokens})
+            outs[k] = make_prefill(cfg32, plan)(p32, batch)
     plain = outs["plain"]
     std = float(plain.std())
     atol = MOE_F32_ATOL_PER_STD * std
@@ -1652,6 +1731,35 @@ def _compare_f32(torch, cfg, params, tokens, label):
     del p32, outs
     if not ok:
         raise SmokeFailure(f"{label}: f32 cuda plan disagrees with plain")
+    return plain
+
+
+def _compare_embeds_plans(torch, cfg, params, batch, label):
+    """A stub frontend's prefill from ``embeds``, "cuda" against "plain"
+    plan, in two readings (see EMBEDS_BF16_ERR_RATIO): in f32 on a cast
+    copy, pointwise (``_compare_f32``); in bf16, each plan's distance from
+    that f32 plain run, the cuda plan's max and mean within
+    EMBEDS_BF16_ERR_RATIO times the plain plan's own."""
+    from repro_torch.serve.step import make_prefill
+    ref = _compare_f32(torch, cfg, params, batch, label)
+    outs = {k: make_prefill(cfg, plan)(params, batch)
+            for k, plan in _plans(cfg).items()}
+    err = {k: (o - ref).abs() for k, o in outs.items()}
+    mx = {k: float(e.max()) for k, e in err.items()}
+    mean = {k: float(e.mean()) for k, e in err.items()}
+    gap = (outs["cuda"] - outs["plain"]).abs()
+    ok = bool(torch.isfinite(outs["cuda"]).all()) and all(
+        m["cuda"] <= EMBEDS_BF16_ERR_RATIO * m["plain"] for m in (mx, mean))
+    log(f"prefill {label} bf16 against the f32 plain run: cuda plan "
+        f"max_abs_err={mx['cuda']:.4g} mean_abs_err={mean['cuda']:.3g}, "
+        f"plain plan max_abs_err={mx['plain']:.4g} mean_abs_err="
+        f"{mean['plain']:.3g} (ratio bound {EMBEDS_BF16_ERR_RATIO}); cuda "
+        f"vs plain max_abs_err={float(gap.max()):.4g} mean_abs_err="
+        f"{float(gap.mean()):.3g} {'ok' if ok else 'FAIL'}")
+    del ref, outs, err, gap
+    if not ok:
+        raise SmokeFailure(f"{label}: bf16 cuda plan further from f32 than "
+                           f"{EMBEDS_BF16_ERR_RATIO}x the plain plan")
 
 
 def phase_prefill_moe(torch, state):
@@ -1708,16 +1816,17 @@ def phase_prefill_moe(torch, state):
     _free_params(torch, state)
 
 
-def _moe_requests(cfg):
-    """SERVE_MOE_N seeded requests of SERVE_MOE_PROMPT prompt tokens."""
+def _seeded_requests(cfg, n, prompt, new):
+    """``n`` seeded requests of ``prompt`` = (lo, hi) prompt tokens and
+    ``new`` new tokens."""
     import numpy as np
 
     from repro_torch.serve.engine import Request
     rng = np.random.RandomState(0)
-    lo, hi = SERVE_MOE_PROMPT
+    lo, hi = prompt
     return [Request(rid=f"r{i}", prompt=tuple(int(t) for t in rng.randint(
         0, cfg.vocab_size, int(rng.randint(lo, hi + 1)))),
-        max_new_tokens=SERVE_MOE_NEW) for i in range(SERVE_MOE_N)]
+        max_new_tokens=new) for i in range(n)]
 
 
 def phase_serve_moe(torch, state):
@@ -1736,7 +1845,8 @@ def phase_serve_moe(torch, state):
     params = _params(torch, cfg, state)
     eng = ServeEngine(cfg, _plans(cfg)["cuda"], capacity=8, cache_len=2048,
                       params=params)
-    reqs = _moe_requests(cfg)
+    reqs = _seeded_requests(cfg, SERVE_MOE_N, SERVE_MOE_PROMPT,
+                            SERVE_MOE_NEW)
     eng.run(reqs[:1])                                   # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1771,6 +1881,129 @@ def phase_serve_moe(torch, state):
     _free_params(torch, state)
 
 
+# --- dense -------------------------------------------------------------------
+
+def phase_dense(torch, state):
+    """The remaining dense archs at full width and depth, one at a time
+    (see the module docstring), then one train step's grads of
+    phi-3-vision-4.2b from ``embeds``."""
+    from repro_torch.configs import get_arch
+
+    _free_params(torch, state)
+    for name in DENSE:
+        cfg = get_arch(name)
+        params = _params(torch, cfg, state)
+        batch = _dense_inputs(cfg, DENSE_S)
+        label = f"{name} {cfg.num_layers} layers"
+        launches, _ = _prefill_once(torch, cfg, params, batch, label,
+                                    cfg.num_layers)
+        state.setdefault("launches", {})[f"prefill {name}"] = launches
+        if cfg.window_size and cfg.window_size < DENSE_LONG_S:
+            # past the window: the kernel's window mask at the arch's shape
+            launches, _ = _prefill_once(
+                torch, cfg, params, _dense_inputs(cfg, DENSE_LONG_S),
+                f"{label} (window {cfg.window_size})", cfg.num_layers)
+            state["launches"][f"prefill {name} S{DENSE_LONG_S}"] = launches
+        # full width, 2 layers (views): cuda against plain
+        cfg2 = dataclasses.replace(cfg, num_layers=2)
+        p2 = dict(params)
+        p2["g0"] = {"b0": _slice_layers(params["g0"]["b0"], 2)}
+        if "embeds" in batch:
+            _compare_embeds_plans(torch, cfg2, p2, batch, f"{name} 2 layers")
+        else:
+            _compare_plans(torch, cfg2, p2, batch)
+        del p2, batch
+        _serve_dense(torch, cfg, params, state)
+        del params
+        _free_params(torch, state)
+    _train_dense(torch, state)
+
+
+def _dense_inputs(cfg, seq):
+    """The prefill's input at B=1 as the pipeline draws it (seed 0): tokens,
+    or ``embeds`` for a stub frontend."""
+    batch = _train_data(cfg, seq).batch_at(0)
+    return {k: t for k, t in batch.items() if k in ("tokens", "embeds")}
+
+
+def _serve_dense(torch, cfg, params, state):
+    """``ServeEngine`` (capacity 8, cache 2048, "cuda" plan) on
+    DENSE_SERVE_N token prompts: every request completes, batched ==
+    sequential, flash-decode launches == layers x prompt tokens (0 when the
+    arch has a window: windowed decode is plain, as the reference's)."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.serve.engine import ServeEngine
+
+    eng = ServeEngine(cfg, _plans(cfg)["cuda"], capacity=8, cache_len=2048,
+                      params=params)
+    reqs = _seeded_requests(cfg, DENSE_SERVE_N, DENSE_SERVE_PROMPT,
+                            DENSE_SERVE_NEW)
+    eng.run(reqs[:1])                                   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    batched = eng.run(reqs)
+    launches = dict(LAUNCHES)
+    st, peak = eng.stats, torch.cuda.max_memory_allocated()
+    state.setdefault("launches", {})[f"serve {cfg.name}"] = launches
+    log(f"serve {cfg.name} batched: prefill {st.prefill_tok_s:.1f} tok/s "
+        f"({st.n_prefill_tokens} tokens in {st.prefill_s:.2f}s), decode "
+        f"{st.decode_tok_s:.1f} tok/s ({st.n_steps} steps in "
+        f"{st.decode_s:.2f}s), peak memory {peak / 2**30:.2f} GiB, "
+        f"launches {launches}")
+    sequential = eng.run(reqs, max_active=1)
+    log(f"serve {cfg.name} sequential: {eng.stats.summary()}")
+    _check_completed(cfg.name, reqs, batched)
+    diff = [r.rid for r in reqs
+            if batched[r.rid].tokens != sequential[r.rid].tokens]
+    if diff:
+        raise SmokeFailure(f"{cfg.name}: batched streams differ from "
+                           f"sequential: {diff}")
+    want = 0 if cfg.window_size else \
+        cfg.num_layers * sum(len(r.prompt) for r in reqs)
+    log(f"serve {cfg.name}: {len(reqs)} requests, batched == sequential "
+        f"token for token; flash_decode {launches['flash_decode']} "
+        f"launches (expected {want})")
+    if launches["flash_decode"] != want:
+        raise SmokeFailure(f"{cfg.name}: serve launched flash_decode "
+                           f"{launches['flash_decode']} times, expected "
+                           f"{want}")
+
+
+def _train_dense(torch, state):
+    """DENSE_TRAIN at full width cut to DENSE_TRAIN_LAYERS layers, B=1,
+    S=DENSE_TRAIN_S, bf16, remat "dots", from its pipeline's ``embeds``:
+    step-0 grads of the "cuda" plan against the "plain" plan, and the cuda
+    plan's flash-attention launches (a forward and a recompute a layer)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.model import model_specs
+    from repro_torch.models.params import init_params, tree_map
+
+    cfg = dataclasses.replace(get_arch(DENSE_TRAIN),
+                              num_layers=DENSE_TRAIN_LAYERS)
+    plans = _train_plans(cfg, "dots")
+    params = tree_map(lambda t: t.requires_grad_(), init_params(
+        model_specs(cfg), torch.Generator().manual_seed(0), "cuda"))
+    batch = _train_data(cfg, DENSE_TRAIN_S).batch_at(0)
+    if "embeds" not in batch or "tokens" in batch:
+        raise SmokeFailure(f"{cfg.name}: the pipeline's batch holds "
+                           f"{sorted(batch)}, not embeds")
+    reset_launches()
+    _grads_gate(torch, f"{cfg.name} {cfg.num_layers} layers bf16 embeds",
+                cfg, plans, params, batch, TRAIN_GRAD_REL_L2["bfloat16"])
+    launches = dict(LAUNCHES)
+    state.setdefault("launches", {})[f"train {cfg.name}"] = launches
+    want = {"flash_attention": 2 * cfg.num_layers}
+    log(f"train {cfg.name} {cfg.num_layers} layers: launches {launches} "
+        f"(the cuda plan's grads; the plain plan's launch none)")
+    if {k: n for k, n in launches.items() if n} != want:
+        raise SmokeFailure(f"train {cfg.name}: launches {launches}, "
+                           f"expected {want}")
+    del params
+    torch.cuda.empty_cache()
+
+
 # --- train ---------------------------------------------------------------------
 
 def _train_plans(cfg, remat):
@@ -1798,9 +2031,10 @@ def _train_data(cfg, seq, batch=1):
 def _grads_gate(torch, label, cfg, plans, params, batch, bound):
     """Step-0 grads of the "cuda" plan against the "plain" plan on the same
     weights and batch: per leaf, the relative L2 error (a dropped gradient
-    reads 1.0) under ``bound``, and every leaf's grad norm > 0.  For an
-    MoE arch the cuda plan's run replays the plain plan's routing (see
-    MOE_AGREE_MIN)."""
+    reads 1.0) under ``bound``, and every leaf's grad norm > 0, but for the
+    embedding table under an ``embeds`` batch (an untied head does not
+    read it), whose grad is zero in both plans.  For an MoE arch the cuda
+    plan's run replays the plain plan's routing (see MOE_AGREE_MIN)."""
     from repro_torch.models.model import model_specs
     from repro_torch.models.params import tree_leaves, tree_map_with_path
     from repro_torch.train.step import make_grads
@@ -1817,10 +2051,17 @@ def _grads_gate(torch, label, cfg, plans, params, batch, bound):
         out[k] = (float(loss), grads, time.perf_counter() - t0)
     paths = tree_leaves(tree_map_with_path(lambda p, _: "/".join(p),
                                            model_specs(cfg)))
+    unread = "embed/tok" if "embeds" in batch and not cfg.tie_embeddings \
+        else None
     worst, bad, rows = 0.0, [], []
     for path, g, w in zip(paths, tree_leaves(out["cuda"][1]),
                           tree_leaves(out["plain"][1])):
         norm = float(g.float().norm())
+        if path == unread:
+            rows.append(f"{path} unread")
+            if norm or float(w.float().norm()):
+                bad.append(f"{path} (unread, norm {norm:.3g})")
+            continue
         rel = float((g.float() - w.float()).norm() / w.float().norm())
         rows.append(f"{path} {rel:.3g}")
         worst = max(worst, rel)
@@ -3371,8 +3612,10 @@ KERNELS = {
                         "src/repro/kernels/flash_attention.py:66",
                         ("prefill granite-8b", "prefill recurrentgemma-2b",
                          f"prefill {MOE}", f"prefill {KIMI}",
+                         *(f"prefill {a}" for a in DENSE),
+                         f"prefill starcoder2-3b S{DENSE_LONG_S}",
                          "train granite-8b", "train recurrentgemma-2b",
-                         f"train {MOE}",
+                         f"train {MOE}", f"train {DENSE_TRAIN}",
                          "sweep granite-8b", "sweep recurrentgemma-2b",
                          "tune granite-8b", "tune recurrentgemma-2b",
                          "tune lint granite-8b",
@@ -3381,6 +3624,7 @@ KERNELS = {
     "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
                      "src/repro/kernels/flash_decode.py:58",
                      ("serve granite-8b", f"serve {MOE}",
+                      *(f"serve {a}" for a in DENSE),
                       "tune granite-8b serving", "tune serve granite-8b")),
     "rglru": ("src/repro_torch/kernels/csrc/rglru.cu",
               "src/repro/kernels/rglru.py:46",
@@ -3462,7 +3706,15 @@ def kernels_line(state):
                             ("at_G10_D256", dict(B=1, pos=2047, H=10)),
                             ("at_qwen3_moe", dict(B=1, pos=63, H=32, KV=4)),
                             ("at_kimi_k2_D112", dict(B=1, pos=63, H=64,
-                                                     D=112))):
+                                                     D=112)),
+                            ("at_chatglm3_G16", dict(B=1, pos=63, H=32,
+                                                     KV=2)),
+                            ("at_starcoder2_G12", dict(B=1, pos=63, H=24,
+                                                       KV=2)),
+                            ("at_phi3_vision_D96", dict(B=1, pos=63, H=32,
+                                                        D=96)),
+                            ("at_musicgen_D64", dict(B=1, pos=63, H=32,
+                                                     D=64))):
                 r = pick_row("flash_decode", dtype="bfloat16", **kw)
                 entry[key] = {k: r[k] for k in NUMBERS + (
                     "host_ms", "plan", "cuda_kernels_per_call")}
@@ -3490,6 +3742,19 @@ def kernels_line(state):
                 "flash_attention", dtype="bfloat16", S=2048, D=112),
                 cuda_route=pick_row("flash_attention", dtype="bfloat16",
                                     D=112)["cuda_route"])
+            for key, kw in (("at_chatglm3_G16", dict(S=2048, KV=2, H=32)),
+                            ("at_starcoder2_S4096", dict(S=4096, H=24)),
+                            ("at_starcoder2_S8192_window4096",
+                             dict(S=8192, H=24)),
+                            ("at_phi3_vision_D96", dict(S=2048, D=96)),
+                            ("at_musicgen_D64", dict(S=2048, D=64))):
+                r = pick_row("flash_attention", dtype="bfloat16", **kw)
+                entry[key] = {k: r[k] for k in NUMBERS + ("cuda_route",
+                                                          "cuda_kernels")}
+            entry["at_phi3_vision_D96_f32"] = dict(
+                pick("flash_attention", dtype="float32", S=2048, D=96),
+                cuda_route=pick_row("flash_attention", dtype="float32",
+                                    D=96)["cuda_route"])
         out.append(entry)
     return {"kernels": out}
 
@@ -3530,7 +3795,7 @@ def main(argv=None) -> int:
                "prefill-recurrent": phase_prefill_recurrent,
                "serve-recurrent": phase_serve_recurrent,
                "prefill-moe": phase_prefill_moe,
-               "serve-moe": phase_serve_moe,
+               "serve-moe": phase_serve_moe, "dense": phase_dense,
                "train": phase_train, "sweep": phase_sweep,
                "tune": phase_tune, "backends": phase_backends}
     adopt_orphans()

@@ -324,7 +324,8 @@ def executor_to_spec(executor) -> Dict:
                 "device": str(executor.device), "mesh": None}
     if isinstance(executor, SleepExecutor):
         return {"kind": "sleep", "sleep_s": executor.sleep_s,
-                "timeout_s": executor.timeout_s}
+                "timeout_s": executor.timeout_s, "device": executor.device,
+                "log": executor.log}
     if isinstance(executor, CrashExecutor):
         return {"kind": "crash", "timeout_s": executor.timeout_s}
     raise TypeError(f"no wire spec for executor {type(executor).__name__} "
@@ -360,7 +361,8 @@ def executor_from_spec(spec: Dict, *, allow_test: bool = False):
             raise DeviceUnsatisfiable(str(e)) from None
     if allow_test and kind == "sleep":
         return SleepExecutor(sleep_s=spec.get("sleep_s", 3600.0),
-                             timeout_s=spec.get("timeout_s"))
+                             timeout_s=spec.get("timeout_s"),
+                             device=spec.get("device"), log=spec.get("log"))
     if allow_test and kind == "crash":
         return CrashExecutor(timeout_s=spec.get("timeout_s"))
     raise ValueError(f"unknown executor kind {kind!r}")

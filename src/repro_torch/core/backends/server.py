@@ -11,10 +11,13 @@ served to every later client without running it again.
     python -m repro_torch.core.backends.server --db /path/scores.db --workers 4
 
 Wall-clock specs are timed on this host's card, and their cache tag names
-that card (a client's tag that names another is refused at submit).  Like
-the reference's, the server does not clamp a wall-clock engine to one
-worker: ``--workers N`` times N programs on one card at once, whose
-medians contend; run a wall-clock server with ``--workers 1``.
+that card (a client's tag that names another is refused at submit).  A
+departure from the reference, whose server times ``--workers`` programs
+and every client's batches on one card at once: an executor that is not
+``parallel_safe`` (the wall clock) gets an engine of one worker, and its
+batches run one at a time per device, under one lock per device, so no
+two wall-clock timings contend whatever the clients send.  Dry-run
+batches keep ``--workers`` workers and run in parallel.
 
 Protocol (all JSON, wire version ``backends.base.WIRE_VERSION``):
 
@@ -59,6 +62,7 @@ submit, never a score taken on another device.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import hmac
 import ipaddress
@@ -180,9 +184,13 @@ class SweepScoringServer:
         self._lock = threading.Lock()       # batches/engines/counters
         self._db_lock = threading.Lock()    # one writer connection
         self._batches: Dict[str, _Batch] = {}
-        #: engine-config key -> (backend, run lock); ProcessBackend.run is
-        #: not re-entrant, so batches sharing an engine serialize on it
-        self._engines: Dict[str, Tuple[ProcessBackend, threading.Lock]] = {}
+        #: engine-config key -> (backend, run lock, device lock);
+        #: ProcessBackend.run is not re-entrant, so batches sharing an
+        #: engine serialize on the run lock
+        self._engines: Dict[str, Tuple[ProcessBackend, threading.Lock,
+                                       Optional[threading.Lock]]] = {}
+        #: device -> the lock every timing executor on it runs under
+        self._device_locks: Dict[str, threading.Lock] = {}
         self.n_compiled = 0                 # programs actually scored here
         self.n_cache_hits = 0               # jobs served from score_cache
         self.n_evicted = 0                  # finished batches TTL-swept
@@ -214,7 +222,7 @@ class SweepScoringServer:
         self._httpd.server_close()
         with self._lock:
             engines, self._engines = self._engines, {}
-        for engine, _ in engines.values():
+        for engine, _, _ in engines.values():
             try:
                 engine.close()
             except Exception:
@@ -328,10 +336,15 @@ class SweepScoringServer:
 
     # ------------------------------------------------------------------
     def _engine_for(self, init: Dict) -> Tuple[ProcessBackend,
-                                               threading.Lock]:
+                                               threading.Lock,
+                                               Optional[threading.Lock]]:
         """One warm ProcessBackend per distinct (executor, arch, shape,
         cache-key) config, reused across batches: torch imports and CUDA
-        contexts are paid once per worker, not once per client sweep."""
+        contexts are paid once per worker, not once per client sweep.
+
+        An executor that is not ``parallel_safe`` gets one worker and its
+        device's lock (the module docstring's departure); a parallel-safe
+        one gets ``self.workers`` and no device lock."""
         from repro_torch.configs.registry import (arch_from_spec,
                                                   shape_from_spec)
         key = json.dumps(init, sort_keys=True)
@@ -340,13 +353,18 @@ class SweepScoringServer:
             if entry is None:
                 executor = executor_from_spec(init["executor"],
                                               allow_test=self.allow_test)
+                timing = not executor.parallel_safe
+                device_lock = self._device_locks.setdefault(
+                    str(executor.device), threading.Lock()) \
+                    if timing else None
                 engine = ProcessBackend(
                     executor, arch_from_spec(init["arch"]),
-                    shape_from_spec(init["shape"]), workers=self.workers,
+                    shape_from_spec(init["shape"]),
+                    workers=1 if timing else self.workers,
                     timeout_s=getattr(executor, "timeout_s", None),
                     db_path=self.db_path, shape_key=init.get("shape_key", ""),
                     mesh_key=init.get("mesh_key", ""))
-                entry = (engine, threading.Lock())
+                entry = (engine, threading.Lock(), device_lock)
                 self._engines[key] = entry
             return entry
 
@@ -374,10 +392,12 @@ class SweepScoringServer:
                 else:
                     pending.append(spec)
             if pending:
-                engine, run_lock = self._engine_for(batch.init)
+                engine, run_lock, device_lock = self._engine_for(
+                    batch.init)
                 by_key = {s.key: s for s in pending}
                 puts: List[Dict] = []
-                with run_lock:
+                # the device lock first, then the engine's: one order
+                with device_lock or contextlib.nullcontext(), run_lock:
                     for out in engine.run(pending):
                         spec = by_key.get(out.key)
                         if out.status == DONE and not out.cached:
@@ -488,9 +508,10 @@ def main(argv=None):
     ap.add_argument("--db", required=True,
                     help="sqlite path of the shared score cache (WAL)")
     ap.add_argument("--workers", type=int, default=2,
-                    help="process workers scoring unique programs (1 for "
-                         "wall-clock clients: N workers time N programs "
-                         "on one card at once)")
+                    help="process workers scoring a dry-run client's "
+                         "unique programs (a wall-clock client's engine "
+                         "has one, and its batches take turns on the "
+                         "device)")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8477)
     ap.add_argument("--allow-test-executors", action="store_true",

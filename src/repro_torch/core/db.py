@@ -5,7 +5,9 @@ reference's ``src/repro/core/db.py``, with its schema unchanged.
 The port is meshless: a row's ``mesh`` stays its JSON dict (``None``
 here), and the score cache's mesh column reads ``"local"``.  The
 ``machine_*``, ``kernel_*`` and ``plan_*`` tables are plain table access;
-their users come with ROADMAP Queue 1 item 5.
+their users are ``core/machine.py`` (the calibrated machine profile),
+``kernels/autotune.py`` (the kernel schedules' timings) and
+``serve/registry.py`` (the plan registry).
 
 Continue mode is the sweep's fault tolerance: a crashed or preempted sweep
 resumes without re-running finished combinations (paper §4.2), and it is

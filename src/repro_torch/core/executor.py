@@ -315,15 +315,23 @@ class SleepExecutor:
     """Deterministic straggler: sleeps ``sleep_s`` per job *without* arming
     the deadline, the stand-in for a hung native call that SIGALRM cannot
     interrupt.  Exercises the process backend's hard (kill-based) timeout
-    in tests; never used in real sweeps."""
+    in tests; never used in real sweeps.
 
-    parallel_safe = True
+    With a ``device`` it stands in for a wall-clock executor timing on
+    that device (``parallel_safe`` False); with a ``log`` path it appends
+    each job's start and end (``time.time()``) to that file.  The scoring
+    server's one-timing-per-device rule is tested with both."""
+
     n_chips = 1
 
     def __init__(self, sleep_s: float = 3600.0,
-                 timeout_s: Optional[float] = None):
+                 timeout_s: Optional[float] = None,
+                 device: Optional[str] = None, log: Optional[str] = None):
         self.sleep_s = sleep_s
         self.timeout_s = timeout_s
+        self.device = device
+        self.log = log
+        self.parallel_safe = device is None
 
     @property
     def cache_tag(self) -> str:
@@ -333,7 +341,11 @@ class SleepExecutor:
                       seg: Segment, combo: Combination,
                       knobs: Optional[GlobalKnobs] = None,
                       mesh=None) -> CostTerms:
+        start = time.time()
         time.sleep(self.sleep_s)
+        if self.log is not None:
+            with open(self.log, "a") as f:
+                f.write(f"{start!r} {time.time()!r}\n")
         return CostTerms(compute_s=self.sleep_s)
 
 

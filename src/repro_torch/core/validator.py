@@ -26,8 +26,16 @@ from repro_torch.models.params import init_params
 def _tiny_batch(cfg: ArchConfig, batch: int = 2, seq: int = 16,
                 seed: int = 0):
     gen = torch.Generator().manual_seed(seed)
-    return {"tokens": torch.randint(0, cfg.vocab_size, (batch, seq),
+    out = {"targets": torch.randint(0, cfg.vocab_size, (batch, seq),
                                     generator=gen)}
+    if cfg.frontend != "none":
+        out["embeds"] = (torch.randn((batch, seq, cfg.d_model),
+                                     generator=gen) * 0.02
+                         ).to(getattr(torch, cfg.dtype))
+    else:
+        out["tokens"] = torch.randint(0, cfg.vocab_size, (batch, seq),
+                                      generator=gen)
+    return out
 
 
 def _small(cfg: ArchConfig) -> ArchConfig:

@@ -11,8 +11,11 @@ The tokens are drawn on the CPU by a ``torch.Generator`` seeded from
 (seed, step, host index) and then moved to the device: the same tokens on
 every device.  They are not the reference's tokens (``jax.random`` streams
 cannot be reproduced in torch); parity tests feed the reference's batches
-through numpy instead.  The reference's ``"embeds"`` input of the vlm/audio
-stub frontends comes with those archs (ROADMAP Queue 1 item 6).
+through numpy instead.  For an arch with a stub frontend (vlm, audio:
+``cfg.frontend != "none"``) a batch carries ``"embeds"`` (B,S,d_model),
+N(0,1) x 0.02 in the config's dtype, in place of ``"tokens"``, as the
+reference's; they are drawn from the same generator after the tokens, so
+they too are a pure function of (seed, step, host).
 """
 from __future__ import annotations
 
@@ -80,11 +83,20 @@ class SyntheticLM:
 
     def batch_at(self, step: int) -> Dict[str, torch.Tensor]:
         """Pure function of step (the resumability contract):
-        {"tokens", "targets"}, (local batch, seq) int64 on the device."""
+        {"tokens" | "embeds", "targets"} on the device: tokens and targets
+        (local batch, seq) int64, embeds (local batch, seq, d_model)."""
         B, S, V = self.local_batch, self.shape.seq_len, self.cfg.vocab_size
-        toks = _batch_tokens(self._generator(step), B, S + 1, V)
-        toks = toks.to(self.device)
-        return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+        gen = self._generator(step)
+        toks = _batch_tokens(gen, B, S + 1, V).to(self.device)
+        out = {"targets": toks[:, 1:]}
+        if self.cfg.frontend != "none":
+            embeds = torch.randn((B, S, self.cfg.d_model),
+                                 generator=gen) * 0.02
+            out["embeds"] = embeds.to(self.device,
+                                      getattr(torch, self.cfg.dtype))
+        else:
+            out["tokens"] = toks[:, :-1]
+        return out
 
     def __next__(self) -> Dict[str, torch.Tensor]:
         b = self.batch_at(self.state.step)

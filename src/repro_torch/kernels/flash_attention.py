@@ -21,9 +21,10 @@ from repro_torch.kernels import build as K
 
 NAME = "flash_attention"
 #: head dims of the wgmma route: every attention arch the port serves
-#: (stablelm-3b 80, kimi-k2 112, granite-8b and qwen3-moe 128,
-#: recurrentgemma-2b 256), and 64
-WGMMA_HEAD_DIMS = (64, 80, 112, 128, 256)
+#: (musicgen-large 64, stablelm-3b 80, phi-3-vision-4.2b 96, kimi-k2 112,
+#: granite-8b, qwen3-moe, chatglm3-6b and starcoder2-3b 128,
+#: recurrentgemma-2b 256)
+WGMMA_HEAD_DIMS = (64, 80, 96, 112, 128, 256)
 # q, k, v, o; dtype, B, H, KV, Sq, Sk, D; strides; causal, window, scale;
 # stream
 ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7

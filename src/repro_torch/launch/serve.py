@@ -11,6 +11,7 @@ fallback) > the built-in default plan.  Runs on the card unless
 Usage:
   python -m repro_torch.launch.serve --arch granite-8b
   python -m repro_torch.launch.serve --arch granite-8b --smoke --device cpu
+  python -m repro_torch.launch.serve --arch chatglm3-6b
   python -m repro_torch.launch.serve --arch recurrentgemma-2b
   python -m repro_torch.launch.serve --arch xlstm-125m --smoke --device cpu
   python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b
@@ -19,10 +20,14 @@ Usage:
   python -m repro_torch.launch.serve --arch stablelm-3b --smoke --batch 4 \
       --cache-len 64 --registry-db ${TMPDIR:-/tmp}/registry.db --device cpu
 
-``--arch`` takes every arch of ``repro_torch.configs.ARCHS``: granite-8b,
-stablelm-3b, recurrentgemma-2b, xlstm-125m, and the MoE archs
-qwen3-moe-30b-a3b (57 GiB of bf16 weights: one H100 holds it) and
-kimi-k2-1t-a32b (1.03 T parameters: no single card holds it).
+``--arch`` takes every arch of ``repro_torch.configs.ARCHS``: the dense
+archs stablelm-3b, granite-8b, chatglm3-6b, starcoder2-3b,
+phi-3-vision-4.2b and musicgen-large (the last two serve token prompts:
+their stub frontends' ``embeds`` feed training and prefill only, as in
+the reference), the recurrent archs recurrentgemma-2b and xlstm-125m,
+and the MoE archs qwen3-moe-30b-a3b (57 GiB of bf16 weights: one H100
+holds it) and kimi-k2-1t-a32b (1.03 T parameters: no single card holds
+it).
 """
 from __future__ import annotations
 
@@ -30,7 +35,7 @@ import argparse
 
 import numpy as np
 
-from repro_torch.configs import get_arch
+from repro_torch.configs import ARCHS, get_arch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.plan import Plan, uniform_plan
 from repro_torch.models.context import SegmentClause
@@ -83,8 +88,8 @@ def resolve_plan(cfg, shape, *, plan_path=None, registry_db=None):
 def serve(argv=None):
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--arch", required=True,
-                    help="granite-8b, stablelm-3b, recurrentgemma-2b, "
-                         "xlstm-125m, qwen3-moe-30b-a3b or kimi-k2-1t-a32b")
+                    help="an arch of repro_torch.configs.ARCHS: "
+                         + ", ".join(ARCHS))
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4,
                     help="slot capacity (the batch of the decode step)")

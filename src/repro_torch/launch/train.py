@@ -12,9 +12,13 @@ Usage:
       --plan plan.json
   python -m repro_torch.launch.train --arch qwen3-moe-30b-a3b --smoke \\
       --device cpu
+  python -m repro_torch.launch.train --arch phi-3-vision-4.2b --smoke \\
+      --device cpu
 
 Every arch of ``repro_torch.configs.ARCHS`` trains, the MoE archs
-included (their loss adds the routers' load-balancing loss).
+included (their loss adds the routers' load-balancing loss), and the
+stub-frontend archs (phi-3-vision-4.2b, musicgen-large) from their
+pipeline's ``embeds``.
 qwen3-moe-30b-a3b at full depth with f32 AdamW state needs ~366 GB: on
 one card, train it cut in depth.
 """
@@ -29,7 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint.store import CheckpointStore
-from repro_torch.configs import get_arch, get_shape
+from repro_torch.configs import ARCHS, get_arch, get_shape
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core.combinator import GlobalKnobs
 from repro_torch.core.plan import Plan, uniform_plan
@@ -75,8 +79,8 @@ class Heartbeat:
 def train(argv=None):
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
     ap.add_argument("--arch", required=True,
-                    help="granite-8b, stablelm-3b, recurrentgemma-2b, "
-                         "xlstm-125m, qwen3-moe-30b-a3b or kimi-k2-1t-a32b")
+                    help="an arch of repro_torch.configs.ARCHS: "
+                         + ", ".join(ARCHS))
     ap.add_argument("--shape", default="train_4k")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config + shape (CPU-runnable)")

@@ -151,13 +151,18 @@ def lm_head(params, x, cfg: ArchConfig, ctx: ModelContext):
 
 
 def forward(params, batch, cfg: ArchConfig, ctxs):
-    """Train/prefill forward. batch: {"tokens": (B,S) int}.  (The
-    reference's ``"embeds"`` input feeds the vlm/audio stub frontends,
-    which come with ROADMAP Queue 1 item 6.)
+    """Train/prefill forward. batch: {"tokens": (B,S) int | "embeds":
+    (B,S,d_model), ...}.  ``embeds`` feeds the vlm/audio stub frontends:
+    it is the residual stream's input, and the embedding table is not
+    read.
 
     Returns (logits (B,S,V) f32, aux_loss scalar f32 tensor).
     """
-    x = embed_tokens(params, batch["tokens"], cfg, _ctx_for(ctxs, SEG_EMBED))
+    if "embeds" in batch:          # vlm/audio stub frontend
+        x = batch["embeds"]
+    else:
+        x = embed_tokens(params, batch["tokens"], cfg,
+                         _ctx_for(ctxs, SEG_EMBED))
     S = x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     aux = 0.0

@@ -17,7 +17,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.plan import Plan, build_contexts
 from repro_torch.device import resolve_device
 from repro_torch.models.loss import softmax_xent
-from repro_torch.models.model import forward, model_specs
+from repro_torch.models.model import SEG_EMBED, forward, model_specs
 from repro_torch.models.params import init_params, tree_leaves, tree_map
 from repro_torch.optim.adamw import adamw_init, adamw_update, cosine_lr
 
@@ -36,7 +36,10 @@ def make_grads(cfg: ArchConfig, plan: Plan, *, device="cuda"):
 
     Every leaf must require grad (:func:`init_train_state` sets that), and
     every leaf must reach the loss: a leaf the graph skips raises, so a
-    dropped gradient cannot pass unseen.
+    dropped gradient cannot pass unseen.  The one exception is the
+    embedding table under an ``embeds`` batch (a stub frontend's), which
+    the forward does not read unless the head is tied to it: its gradient
+    is zero, as the reference's.
     """
     resolve_device(device)
     ctxs = build_contexts(cfg, plan)
@@ -45,7 +48,13 @@ def make_grads(cfg: ArchConfig, plan: Plan, *, device="cuda"):
         logits, aux = forward(params, batch, cfg, ctxs)
         loss, metrics = softmax_xent(logits, batch["targets"])
         total = loss + AUX_LOSS_WEIGHT * aux
-        grads = torch.autograd.grad(total, tree_leaves(params))
+        leaves = tree_leaves(params)
+        unread = params[SEG_EMBED]["tok"] \
+            if "embeds" in batch and not cfg.tie_embeddings else None
+        got = iter(torch.autograd.grad(
+            total, [t for t in leaves if t is not unread]))
+        grads = [torch.zeros_like(t) if t is unread else next(got)
+                 for t in leaves]
         metrics = {k: t.detach()
                    for k, t in dict(metrics, loss=loss, aux_loss=aux).items()}
         return total.detach(), metrics, _unflatten(params, grads)
@@ -71,9 +80,11 @@ def make_train_step(cfg: ArchConfig, plan: Plan, *, device="cuda",
 
     def train_step(params, opt_state, batch):
         if mb > 1:
-            if batch["tokens"].shape[0] % mb:
-                raise ValueError(f"batch of {batch['tokens'].shape[0]} does "
-                                 f"not split into {mb} microbatches")
+            # every batch has targets; a frontend batch has embeds, no
+            # tokens
+            if batch["targets"].shape[0] % mb:
+                raise ValueError(f"batch of {batch['targets'].shape[0]} "
+                                 f"does not split into {mb} microbatches")
             gsum, lsum = None, 0.0
             for i in range(mb):
                 part = {k: t.chunk(mb)[i] for k, t in batch.items()}

@@ -64,11 +64,16 @@ def _close(got, want, dtype):
     (1, 1, 8, 2, 128), (1, 1, 4, 4, 80), (1, 1, 10, 1, 256),
     (1, 65, 8, 2, 128), (2, 65, 10, 1, 256), (1, 1000, 8, 2, 80),
     # kimi-k2's head_dim 112 (G = 8), qwen3-moe's G = 8 at D = 128
-    (1, 300, 16, 2, 112), (1, 1, 8, 1, 112), (1, 1000, 32, 4, 128)])
+    (1, 300, 16, 2, 112), (1, 1, 8, 1, 112), (1, 1000, 32, 4, 128),
+    # phi-3-vision's head_dim 96 (G = 1): ragged S and one row;
+    # chatglm3's G = 16 and starcoder2's G = 12 at D = 128; musicgen's
+    # D = 64 at G = 1
+    (1, 2047, 8, 8, 96), (1, 1, 4, 4, 96), (2, 300, 4, 4, 96),
+    (1, 1000, 32, 2, 128), (1, 700, 24, 2, 128), (1, 1000, 8, 8, 64)])
 @pytest.mark.parametrize("window", [0, 48])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_cuda_vs_plain(dev, B, S, H, KV, D, window, dtype):
-    if dtype == torch.bfloat16 and D in (80, 112, 128, 256):
+    if dtype == torch.bfloat16 and D in (64, 80, 96, 112, 128, 256):
         assert fa_route(dtype, D) == "wgmma"
     rng = np.random.default_rng(0)
     q = _t(rng, (B, S, H, D), dtype, dev)
@@ -85,7 +90,7 @@ def test_flash_attention_cuda_vs_plain(dev, B, S, H, KV, D, window, dtype):
 
 @pytest.mark.parametrize("Sq,Sk,window", [(100, 300, 0), (100, 300, 48),
                                            (300, 100, 0)])
-@pytest.mark.parametrize("D", [80, 112, 128, 256])
+@pytest.mark.parametrize("D", [80, 96, 112, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_cuda_sq_ne_sk(dev, Sq, Sk, window, D, dtype):
     """Queries and keys of different lengths, the mask on absolute
@@ -100,7 +105,7 @@ def test_flash_attention_cuda_sq_ne_sk(dev, Sq, Sk, window, D, dtype):
     _close(got, want.transpose(1, 2), dtype)
 
 
-@pytest.mark.parametrize("D", [80, 112, 128, 256])
+@pytest.mark.parametrize("D", [80, 96, 112, 128, 256])
 @pytest.mark.parametrize("window", [0, 48])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_cuda_non_causal(dev, D, window, dtype):
@@ -116,7 +121,7 @@ def test_flash_attention_cuda_non_causal(dev, D, window, dtype):
     _close(got, want.transpose(1, 2), dtype)
 
 
-@pytest.mark.parametrize("D", [80, 112, 128, 256])
+@pytest.mark.parametrize("D", [80, 96, 112, 128, 256])
 def test_flash_attention_cuda_fused_qkv_views(dev, D):
     """q, k and v as slices of one (B,S,H+2KV,D) projection: model-layout
     views that are not contiguous, read by TMA through their strides."""
@@ -149,7 +154,9 @@ def test_flash_attention_wgmma_rejects_unaligned_strides(dev):
     # CTA); granite-8b's heads at Smax 4096 (a cluster of CTAs per kv head)
     (1, 300, 10, 1, 256), (1, 4096, 32, 8, 128),
     # qwen3-moe's heads (G = 8) and kimi-k2's (D = 112)
-    (1, 2048, 32, 4, 128), (1, 2048, 64, 8, 112)])
+    (1, 2048, 32, 4, 128), (1, 2048, 64, 8, 112),
+    # chatglm3-6b's (G = 16), phi-3-vision's (D = 96), musicgen's (D = 64)
+    (1, 2048, 32, 2, 128), (1, 2048, 32, 32, 96), (1, 2048, 32, 32, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_decode_cuda_vs_plain(dev, B, Smax, H, KV, D, dtype):
     rng = np.random.default_rng(1)
@@ -417,8 +424,13 @@ def _plan(cfg, kernel):
 
 # smoke launches per prefill: granite 2 attn layers; recurrentgemma one
 # rec, rec, attn group; xlstm 3 mlstm + 1 slstm layers; qwen3-moe 2
-# attn_moe layers; kimi-k2 one attn and 2 attn_moe layers
+# attn_moe layers; kimi-k2 one attn and 2 attn_moe layers; the other
+# dense archs 2 attn layers each
 SMOKE_LAUNCHES = {"granite-8b": {"flash_attention": 2},
+                  "chatglm3-6b": {"flash_attention": 2},
+                  "starcoder2-3b": {"flash_attention": 2},
+                  "phi-3-vision-4.2b": {"flash_attention": 2},
+                  "musicgen-large": {"flash_attention": 2},
                   "recurrentgemma-2b": {"rglru": 2, "flash_attention": 1},
                   "xlstm-125m": {"mlstm": 3},
                   "qwen3-moe-30b-a3b": {"flash_attention": 2},
@@ -438,6 +450,25 @@ def test_model_cuda_plan_matches_plain_plan(dev, name):
     assert {k: v for k, v in LAUNCHES.items() if v} == SMOKE_LAUNCHES[name]
     b = make_prefill(cfg, _plan(cfg, "plain"), device=dev)(
         params, {"tokens": toks})
+    torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["phi-3-vision-4.2b", "musicgen-large"])
+def test_model_cuda_plan_embeds_match_plain_plan(dev, name):
+    """A stub frontend's ``embeds`` (B,S,d_model) as the residual stream's
+    input, through the cuda plan's flash-attention."""
+    cfg = get_arch(name).smoke()
+    params = init_params(model_specs(cfg), torch.Generator().manual_seed(0),
+                         dev)
+    x = torch.from_numpy((np.random.default_rng(2).standard_normal(
+        (2, 40, cfg.d_model)) * 0.02).astype(np.float32)).to(dev)
+    reset_launches()
+    a = make_prefill(cfg, _plan(cfg, "cuda"), device=dev)(
+        params, {"embeds": x})
+    assert {k: v for k, v in LAUNCHES.items() if v} == \
+        {"flash_attention": cfg.num_layers}
+    b = make_prefill(cfg, _plan(cfg, "plain"), device=dev)(
+        params, {"embeds": x})
     torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
 
 

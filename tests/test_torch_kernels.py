@@ -87,8 +87,9 @@ def test_flash_attention_route():
     from repro_torch.kernels.flash_attention import WGMMA_HEAD_DIMS, route
     served = {c.head_dim_ for c in ARCHS.values()
               if {"attn", "attn_moe"} & set(c.block_kinds())}
-    # stablelm-3b, kimi-k2, granite-8b and qwen3-moe, recurrentgemma
-    assert served == {80, 112, 128, 256}
+    # musicgen-large, stablelm-3b, phi-3-vision-4.2b, kimi-k2, granite-8b
+    # (qwen3-moe, chatglm3-6b, starcoder2-3b), recurrentgemma
+    assert served == {64, 80, 96, 112, 128, 256}
     for D in served:
         assert route(torch.bfloat16, D) == "wgmma"
     for D in HEAD_DIMS:

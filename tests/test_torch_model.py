@@ -110,7 +110,9 @@ JAX_TO_TORCH = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 @pytest.mark.parametrize("name", ["granite-8b", "stablelm-3b",
                                   "recurrentgemma-2b", "xlstm-125m",
-                                  "qwen3-moe-30b-a3b", "kimi-k2-1t-a32b"])
+                                  "qwen3-moe-30b-a3b", "kimi-k2-1t-a32b",
+                                  "chatglm3-6b", "starcoder2-3b",
+                                  "phi-3-vision-4.2b", "musicgen-large"])
 def test_param_tree_matches_reference(name):
     jcfg, tcfg = _cfgs(name, "bfloat16")
     jp, tp = _params(jcfg)
@@ -130,6 +132,10 @@ def test_param_tree_matches_reference(name):
                             torch.Generator().manual_seed(0), "cpu"))
     assert {k: (tuple(v.shape), v.dtype) for k, v in own.items()} == \
         {k: (tuple(v.shape), v.dtype) for k, v in seen.items()}
+    # a tied head has no output matrix; LayerNorm carries biases
+    assert ("head/out" in seen) == (not tcfg.tie_embeddings)
+    assert any(k.endswith("bias") for k in seen) == (tcfg.norm
+                                                      == "layernorm")
 
 
 @pytest.mark.parametrize("name", ["recurrentgemma-2b", "xlstm-125m",
@@ -189,16 +195,31 @@ def test_init_params_seeded_and_stable():
     ("qwen3-moe-30b-a3b", "float32", "cuda"),
     ("kimi-k2-1t-a32b", "float32", "plain"),
     ("kimi-k2-1t-a32b", "float32", "cuda"),
+    ("chatglm3-6b", "float32", "plain"),     # RoPE 2d, G=2 at smoke size
+    ("chatglm3-6b", "float32", "cuda"),
+    ("starcoder2-3b", "float32", "plain"),   # window, LayerNorm, tied head
+    ("phi-3-vision-4.2b", "float32", "plain"),    # embeds
+    ("phi-3-vision-4.2b", "float32", "cuda"),
+    ("musicgen-large", "float32", "plain"),  # embeds, no RoPE, LayerNorm
 ])
 def test_forward_logits_match_reference(name, dtype, kernel):
     jcfg, tcfg = _cfgs(name, dtype)
     jp, tp = _params(jcfg)
     jctx, tctx = _ctxs(jcfg, tcfg, kernel)
-    toks = np.random.default_rng(1).integers(0, jcfg.vocab_size, (2, 16))
-    jl, jaux = JM.forward(jp, {"tokens": jnp.asarray(toks, jnp.int32)},
-                          jcfg, jctx)
-    tl, aux = TM.forward(tp, {"tokens": torch.from_numpy(toks)}, tcfg, tctx)
-    assert tl.dtype == torch.float32 and tl.shape == (2, 16, jcfg.vocab_size)
+    # past the window where there is one, so that its mask bites
+    S = 2 * tcfg.window_size or 16
+    rng = np.random.default_rng(1)
+    if tcfg.frontend != "none":         # the stub frontend's embeds
+        x = (rng.standard_normal((2, S, tcfg.d_model)) * 0.02).astype(
+            np.float32)
+        jb, tb = {"embeds": jnp.asarray(x)}, {"embeds": torch.from_numpy(x)}
+    else:
+        toks = rng.integers(0, jcfg.vocab_size, (2, S))
+        jb = {"tokens": jnp.asarray(toks, jnp.int32)}
+        tb = {"tokens": torch.from_numpy(toks)}
+    jl, jaux = JM.forward(jp, jb, jcfg, jctx)
+    tl, aux = TM.forward(tp, tb, tcfg, tctx)
+    assert tl.dtype == torch.float32 and tl.shape == (2, S, jcfg.vocab_size)
     # the MoE archs' load-balancing loss; 0 for every other arch
     assert float(aux) == pytest.approx(float(jaux), rel=1e-5, abs=1e-5)
     assert (float(aux) > 0) == tcfg.is_moe
@@ -210,7 +231,9 @@ def test_forward_logits_match_reference(name, dtype, kernel):
 @pytest.mark.parametrize("name,kernel", [("granite-8b", "cuda"),
                                          ("stablelm-3b", "plain"),
                                          ("qwen3-moe-30b-a3b", "cuda"),
-                                         ("kimi-k2-1t-a32b", "plain")])
+                                         ("kimi-k2-1t-a32b", "plain"),
+                                         ("chatglm3-6b", "cuda"),
+                                         ("musicgen-large", "plain")])
 def test_decode_step_scalar_pos_matches_reference(name, kernel):
     jcfg, tcfg = _cfgs(name)
     jp, tp = _params(jcfg)
@@ -275,7 +298,28 @@ def test_prefill_cache_last_logits_match_prefill(kernel):
                                                   jnp.int32)}))
 
 
-# --- sliding window (no registered arch uses it yet; the code path is kept) --
+def test_frontend_arch_prefill_cache_serves_token_prompts():
+    """A stub-frontend arch serves token prompts, as the engine admits
+    them (``embeds`` feed training and prefill only, as in the
+    reference): the prefill cache's last logits are the token prefill's,
+    and that prefill is the reference's."""
+    jcfg, tcfg = _cfgs("phi-3-vision-4.2b")
+    jp, tp = _params(jcfg)
+    tplan = uniform_plan(tcfg, "tensor_par", set(),
+                         SegmentClause(kernel="cuda"))
+    prompt = torch.tensor([[3, 1, 4, 1, 5, 9, 2]])
+    first, last, _ = make_prefill_cache(tcfg, tplan, device="cpu")(
+        tp, TM.init_cache(tcfg, 1, 16, "cpu"), prompt)
+    full = make_prefill(tcfg, tplan, device="cpu")(tp, {"tokens": prompt})
+    _close(last[0], full[0, -1])
+    assert int(first[0]) == int(torch.argmax(full[0, -1]))
+    jfwd, _ = jmake_prefill(jcfg, None, juniform_plan(
+        jcfg, "tensor_par", set(), JClause(kernel="pallas")))
+    _close(full, jfwd(jp, {"tokens": jnp.asarray(prompt.numpy(),
+                                                  jnp.int32)}))
+
+
+# --- sliding window ----------------------------------------------------------
 
 @pytest.mark.parametrize("window", [0, 4])
 def test_chunked_attention_matches_reference(window):
@@ -335,6 +379,26 @@ def test_windowed_decode_ring_buffer_matches_reference():
         tl, tc = TM.decode_step(tp, tc, torch.from_numpy(toks[i]), i, tcfg,
                                 tctx)
         _close(tl, jl)
+
+
+def test_starcoder2_windowed_decode_wraps_and_matches_reference():
+    """starcoder2-3b's own window (16 at smoke size) over 20 decode steps:
+    the ring buffer of 16 slots wraps, with the tied head and LayerNorm."""
+    jcfg, tcfg = _cfgs("starcoder2-3b")
+    assert tcfg.window_size == 16 and tcfg.tie_embeddings
+    jp, tp = _params(jcfg)
+    jctx, tctx = _ctxs(jcfg, tcfg, "plain")
+    B, Smax, n = 2, 24, 20
+    jc, tc = JM.init_cache(jcfg, B, Smax), TM.init_cache(tcfg, B, Smax, "cpu")
+    assert tc["g0"]["b0"]["k"].shape[2] == 16
+    toks = np.random.default_rng(6).integers(0, jcfg.vocab_size, (n, B))
+    for i in range(n):
+        jl, jc = JM.decode_step(jp, jc, jnp.asarray(toks[i], jnp.int32),
+                                jnp.int32(i), jcfg, jctx)
+        tl, tc = TM.decode_step(tp, tc, torch.from_numpy(toks[i]), i, tcfg,
+                                tctx)
+        _close(tl, jl)
+    _close(tc["g0"]["b0"]["k"], jc["g0"]["b0"]["k"])
 
 
 # --- recurrent archs: decode state and prefill cache ---------------------------

@@ -302,6 +302,66 @@ def test_vanished_batch_is_resubmitted_and_served_from_cache(server):
     assert _stats(server.url)["n_compiled"] == 1
 
 
+def _sleep_batches(srv, log, device, n_clients=2, n_jobs=3):
+    """``n_clients`` clients, each with its own sleep config (a distinct
+    engine), submit ``n_jobs`` jobs at once; returns the logged (start,
+    end) of every job, sorted, once every batch is done."""
+    cfg, shape = _cell()
+    bids = []
+    for c in range(n_clients):
+        init = {"executor": {"kind": "sleep", "sleep_s": 0.3 + 0.01 * c,
+                             "timeout_s": None, "device": device,
+                             "log": str(log)},
+                "arch": arch_to_spec(cfg), "shape": shape_to_spec(shape),
+                "shape_key": "sk", "mesh_key": "mk"}
+        jobs = [_stack_job(f"c{c}j{j}").to_json() for j in range(n_jobs)]
+        bids.append(_post(srv.url, {"v": WIRE_VERSION, "run": f"c{c}",
+                                    "init": init, "jobs": jobs})["batch"])
+    deadline = time.monotonic() + 120
+    while not all(srv.batch(b).done for b in bids):
+        assert time.monotonic() < deadline, "batches never finished"
+        time.sleep(0.05)
+    for b in bids:
+        assert [o["status"] for o in srv.batch(b).outcomes] == \
+            ["done"] * n_jobs
+    spans = sorted(tuple(map(float, line.split()))
+                   for line in log.read_text().splitlines())
+    assert len(spans) == n_clients * n_jobs
+    return spans
+
+
+def test_server_times_one_wall_clock_program_per_device(tmp_path):
+    """A timing executor (not ``parallel_safe``) gets one worker, and two
+    clients with different configs take turns on its device: no two
+    programs are ever in flight at once, though the server has 2 workers.
+    A departure from the reference's server, which times them together."""
+    srv = SweepScoringServer(str(tmp_path / "s.db"), workers=2,
+                             allow_test=True)
+    srv.start()
+    try:
+        spans = _sleep_batches(srv, tmp_path / "wall.log", device="cpu")
+        assert all(e.workers == 1 for e, _, _ in srv._engines.values())
+    finally:
+        srv.close()
+    for (_, end), (start, _) in zip(spans, spans[1:]):
+        assert start >= end, spans
+
+
+def test_server_runs_dry_run_batches_in_parallel(tmp_path):
+    """A parallel-safe executor keeps the server's workers and its batches
+    overlap: the per-device lock holds timing executors only."""
+    srv = SweepScoringServer(str(tmp_path / "s.db"), workers=2,
+                             allow_test=True)
+    srv.start()
+    try:
+        spans = _sleep_batches(srv, tmp_path / "dry.log", device=None)
+        assert all(e.workers == 2 and lock is None
+                   for e, _, lock in srv._engines.values())
+    finally:
+        srv.close()
+    assert any(start < end for (_, end), (start, _) in zip(spans, spans[1:]))
+
+
 def test_unreachable_server_fails_jobs_transient():
     cfg, shape = _cell()
     backend = RemoteBackend(DryRunExecutor(), cfg, shape,

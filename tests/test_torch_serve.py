@@ -176,15 +176,27 @@ def test_reference_plan_json_loads_unchanged(jkernel, kernel):
     assert again.to_json() == plan.to_json()
 
 
-def test_arch_registry_names_pending_roadmap_items():
+def test_arch_registry_resolves_every_reference_arch():
+    """Every name of the reference's registry resolves, in its order, as
+    does its ``-smoke`` form, to a field-identical config."""
+    from repro.configs.registry import ARCHS as JARCHS
+    from repro_torch.configs import ARCHS
+    assert list(ARCHS) == list(JARCHS)
+    for name, jcfg in JARCHS.items():
+        for n in (name, name + "-smoke"):
+            assert dataclasses.asdict(get_arch(n)) == dataclasses.asdict(
+                jcfg if n == name else jcfg.smoke()), n
     assert get_arch("granite-8b").num_layers == 36
     assert get_arch("stablelm-3b-smoke").norm == "layernorm"
     assert get_arch("xlstm-125m").block_kinds().count("mlstm") == 9
     assert get_arch("recurrentgemma-2b-smoke").head_dim == 16
     assert get_arch("qwen3-moe-30b-a3b").num_experts == 128
     assert get_arch("kimi-k2-1t-a32b-smoke").first_k_dense == 1
-    with pytest.raises(KeyError, match="ROADMAP Queue 1 item 6"):
-        get_arch("chatglm3-6b")
+    assert get_arch("chatglm3-6b").rope == "2d"
+    star = get_arch("starcoder2-3b")
+    assert star.window_size == 4096 and star.tie_embeddings
+    assert get_arch("phi-3-vision-4.2b").head_dim_ == 96
+    assert get_arch("musicgen-large").frontend == "frame"
     with pytest.raises(KeyError, match="unknown arch"):
         get_arch("nope")
     with pytest.raises(ValueError, match="kernel"):
@@ -192,7 +204,9 @@ def test_arch_registry_names_pending_roadmap_items():
 
 
 @pytest.mark.parametrize("arch", ["granite-8b", "recurrentgemma-2b",
-                                  "xlstm-125m", "qwen3-moe-30b-a3b"])
+                                  "xlstm-125m", "qwen3-moe-30b-a3b",
+                                  "chatglm3-6b", "starcoder2-3b",
+                                  "phi-3-vision-4.2b", "musicgen-large"])
 def test_cli_serves_on_cpu(capsys, arch, tmp_path):
     done = serve(["--arch", arch, "--smoke", "--device", "cpu",
                   "--requests", "2", "--tokens", "3", "--cache-len", "16"])

@@ -322,6 +322,16 @@ def _program_cases():
                 for k in kernels:
                     yield pytest.param(name, sname, seg.name, k, 1,
                                        id=f"{name}-{sname}-{seg.name}-{k}")
+    # a stub frontend's embed segment times the embedding of zero tokens,
+    # as the reference's, and its block and head segments are the dense
+    # ones; a tied head (starcoder2-3b) reads the embedding table
+    for name, segname, kernel in (("phi-3-vision-4.2b", "embed", "plain"),
+                                  ("phi-3-vision-4.2b", "g0", "cuda"),
+                                  ("phi-3-vision-4.2b", "head", "plain"),
+                                  ("starcoder2-3b", "head", "plain")):
+        for sname in ("train_4k", "prefill_32k"):
+            yield pytest.param(name, sname, segname, kernel, 1,
+                               id=f"{name}-{sname}-{segname}-{kernel}")
     # gradient accumulation over two batch slices
     for segname in ("g0", "head"):
         yield pytest.param("granite-8b", "train_4k", segname, "plain", 2,

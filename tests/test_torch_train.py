@@ -49,7 +49,8 @@ from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.kernels import ops
 from repro_torch.launch.train import train
 from repro_torch.models.context import SegmentClause
-from repro_torch.models.convert import params_from_numpy, tensor_to_numpy
+from repro_torch.models.convert import (params_from_numpy,
+                                        tensor_from_numpy, tensor_to_numpy)
 from repro_torch.models.loss import softmax_xent
 from repro_torch.models.params import tree_leaves, tree_map
 from repro_torch.optim import adamw as TA
@@ -281,7 +282,10 @@ def _ref_batches(jcfg, n=N_STEPS, seed=3):
 
 
 def _torch_batch(b):
-    return {k: torch.from_numpy(v.astype(np.int64)) for k, v in b.items()}
+    """The reference's batch in torch: token ids as int64; a stub
+    frontend's ``embeds`` keeps its float dtype."""
+    return {k: torch.from_numpy(v.astype(np.int64)) if v.dtype.kind in "iu"
+            else tensor_from_numpy(v, "cpu") for k, v in b.items()}
 
 
 def _trainable(tree):
@@ -305,6 +309,8 @@ def _assert_grads_close(got, want):
     ("xlstm-125m", "cuda", "full", 1),
     ("qwen3-moe-30b-a3b", "cuda", "dots", 1),
     ("kimi-k2-1t-a32b", "cuda", "none", 1),
+    ("phi-3-vision-4.2b", "cuda", "none", 2),   # embeds, split in two
+    ("starcoder2-3b", "cuda", "dots", 1),       # the tied head's grads
 ])
 def test_train_step_matches_reference(name, kernel, remat, mb):
     """N_STEPS of ``make_train_step`` against ``jit_train_step`` (f32 smoke
@@ -403,6 +409,61 @@ def test_data_pure_function_of_step():
     other = SyntheticLM(cfg, shape, seed=6, device="cpu")
     assert not torch.equal(other.batch_at(0)["tokens"],
                            d1.batch_at(0)["tokens"])
+
+
+def test_data_embeds_pure_function_of_step_and_replayed():
+    """A stub-frontend arch's batch carries embeds (N(0,1) x 0.02 in the
+    config's dtype) and no tokens, as the reference's: a pure function of
+    (seed, step), replayed after a restore."""
+    cfg = get_arch("musicgen-large").smoke()
+    shape = get_shape("train_4k").smoke()
+    d1, d2 = (SyntheticLM(cfg, shape, seed=5, device="cpu") for _ in "ab")
+    b = d1.batch_at(3)
+    assert sorted(b) == ["embeds", "targets"]
+    assert b["embeds"].shape == (shape.global_batch, shape.seq_len,
+                                 cfg.d_model)
+    assert b["embeds"].dtype == getattr(torch, cfg.dtype)
+    assert 0.015 < float(b["embeds"].std()) < 0.025
+    assert torch.equal(b["embeds"], d2.batch_at(3)["embeds"])
+    assert torch.equal(b["targets"], d2.batch_at(3)["targets"])
+    assert not torch.equal(b["embeds"], d1.batch_at(4)["embeds"])
+    bf = SyntheticLM(get_arch("musicgen-large"), shape, seed=5,
+                     device="cpu").batch_at(0)["embeds"]
+    assert bf.dtype == torch.bfloat16 and bf.shape[-1] == 2048
+    next(d1), next(d1)
+    snap = d1.snapshot()
+    want = next(d1)
+    e = SyntheticLM(cfg, shape, seed=0, device="cpu")
+    e.restore(json.loads(json.dumps(snap)))
+    got = next(e)
+    assert torch.equal(got["embeds"], want["embeds"])
+    assert torch.equal(got["targets"], want["targets"])
+
+
+def test_microbatch_split_sized_on_targets():
+    """The microbatch split is sized on ``targets``, which every batch
+    has: an embeds batch (no tokens) splits, and its summed grads are the
+    whole batch's; a batch that does not divide raises."""
+    cfg = get_arch("phi-3-vision-4.2b").smoke()
+    shape = get_shape("train_4k").smoke()
+    batch = SyntheticLM(cfg, shape, seed=1, device="cpu").batch_at(0)
+    assert "tokens" not in batch
+    steps = {}
+    for mb in (1, 2):
+        plan = uniform_plan(cfg, "fsdp", knobs=GlobalKnobs(microbatches=mb))
+        params, state = init_train_state(cfg, plan,
+                                         torch.Generator().manual_seed(0),
+                                         "cpu")
+        steps[mb] = make_train_step(cfg, plan, device="cpu")(
+            params, state, batch)[2]
+    assert float(steps[2]["grad_norm"]) == pytest.approx(
+        float(steps[1]["grad_norm"]), rel=1e-4)
+    odd = {k: t[:3] for k, t in batch.items()}
+    plan = uniform_plan(cfg, "fsdp", knobs=GlobalKnobs(microbatches=2))
+    params, state = init_train_state(cfg, plan,
+                                     torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(ValueError, match="does not split into 2"):
+        make_train_step(cfg, plan, device="cpu")(params, state, odd)
 
 
 def test_data_host_slices_differ_and_snapshot_restores():
