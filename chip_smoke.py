@@ -43,7 +43,8 @@ phases (each failure exits non-zero and prints no result line):
             then at full width cut to 2 layers, the same prefill under the
             ``"plain"`` plan, compared within a stated bf16 tolerance.
   serve   — ``ServeEngine`` (capacity 8, cache_len 2048, ``"cuda"`` plan)
-            on 8 seeded requests of ~64 prompt tokens and 32 new tokens:
+            on 8 seeded requests of ~16 prompt tokens (``SERVE_PROMPT``)
+            and 32 new tokens:
             every request completes, the batched run equals the
             ``max_active=1`` run token for token, and the admission prefill
             went through flash-decode.
@@ -64,8 +65,10 @@ phases (each failure exits non-zero and prints no result line):
             prompt tokens and 16 new tokens, every request completes and
             the batched streams equal the sequential ones; then a long
             load, 12 requests on the 8 slots, eight of them ~64 prompt
-            tokens and 2000 new (past recurrentgemma's 2048-token window;
-            xlstm-125m, which has no window, 500 new):
+            tokens and 2000 new (past recurrentgemma's 2048-token window),
+            on each arch cut to its first pattern of block kinds
+            (recurrentgemma's rec, rec, attn group; xlstm's mlstm x 3,
+            slstm):
             tok/s, peak memory, every request complete, a repeated request
             in a recycled slot gives the same stream; for recurrentgemma,
             decode past the window held to the forward in f32 (one group);
@@ -86,7 +89,7 @@ phases (each failure exits non-zero and prints no result line):
             the dense layer.
   serve-moe — ``ServeEngine`` on qwen3-moe-30b-a3b at full depth
             (capacity 8, cache_len 2048, ``"cuda"`` plan), 8 seeded
-            requests of 12-20 prompt tokens and 16 new: every request
+            requests of 6-10 prompt tokens and 16 new: every request
             completes, batched == sequential token for token, flash-decode
             launches == 48 x prompt tokens; then the profile of decode
             steps.
@@ -126,8 +129,8 @@ phases (each failure exits non-zero and prints no result line):
             two steps (loss, aux loss, step ms, peak memory, 4
             flash-attention launches a step); xlstm-125m at full width and depth through
             ``launch/train.py`` (B=8, S=512, a "cuda" plan file, remat
-            "dots"): 6 steps straight, then 3, a restart from the latest
-            checkpoint and 3 more, whose losses must equal the straight
+            "dots"): 4 steps straight, then 2, a restart from the latest
+            checkpoint and 2 more, whose losses must equal the straight
             run's bit for bit (mlstm 18 launches a step).
   sweep   — the ComPar sweep (``core/tuner.py``), three sweeps, one JSON
             line each (``{"sweep": "A" | "B" | "C", ...}``).  A: the
@@ -200,8 +203,29 @@ phases (each failure exits non-zero and prints no result line):
             --backend process --layers 1``, the reference's spec (block_q
             16) with kernel {plain, cuda}: rc 0, no failed row, the
             Continue run scores nothing; and
-            ``python -m repro_torch.examples.train_e2e --full --steps 20``
-            (finite losses, resumed from step 10).
+            ``python -m repro_torch.examples.train_e2e --full --steps 6``
+            (finite losses, resumed from step 3).
+  mesh    — the port on a ``torch.distributed`` ``DeviceMesh``: a
+            world-size-1 NCCL group and a (1, 1) ``data x model`` mesh
+            (NCCL puts no two ranks on one card), one JSON line per part
+            (``{"mesh": "group" | "prefill" | "serve" | "train" |
+            "sweep", ...}``).  prefill: granite-8b at full width and depth
+            placed by the ``tensor_par`` and then the ``fsdp`` plan's rules
+            (leaves counted by placement), B=1, S=2048, ``"cuda"`` plan:
+            logits held to the meshless run's (PREFILL_ATOL/RTOL),
+            exactly 36 flash-attention launches.  serve: a meshed
+            ``ServeEngine`` on 8 requests of ~8 prompt tokens and 8 new:
+            batched == sequential, exactly 36 flash-decode launches per
+            prompt token.  train: granite-8b cut to 2 layers, S=4096,
+            ``tensor_par``, remat dots, step-0 grads on the mesh against
+            meshless per leaf (TRAIN_GRAD_REL_L2, f32 at 1 layer, bf16 at
+            2), then two AdamW steps on the placed params.  sweep:
+            granite-8b 2 layers, train S=4096, tensor_par and fsdp x
+            kernel {plain, cuda}, ``mesh_space=[None, {"data": 1,
+            "model": 1}]``, wall clock; then the same sweep as a dry run
+            in process and on 2 process workers (each rebuilds the mesh
+            in its own world-size-1 group): the same rows and plan byte
+            for byte.  The group is destroyed and no process is left.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after.  The last two stdout lines before the final one are the
@@ -230,7 +254,7 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 PHASES = ("build", "kernels", "prefill", "serve", "trace",
           "prefill-recurrent", "serve-recurrent", "prefill-moe", "serve-moe",
-          "dense", "train", "sweep", "tune", "backends")
+          "dense", "train", "sweep", "tune", "backends", "mesh")
 RECURRENT = ("recurrentgemma-2b", "xlstm-125m")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): memory rate, bf16 tensor-core
@@ -271,6 +295,9 @@ XLSTM_BF16_MEAN_PER_STD = 0.1
 # window, so its KV ring buffers wrap during batched decode; the last long
 # one repeats the first one's prompt in a recycled slot.
 SERVE_LONG_NEW = 2000
+# granite-8b's serve phase: prompts of SERVE_PROMPT +- 1 tokens (each an
+# admission step of B=1 through 36 layers, host-bound), 32 new
+SERVE_PROMPT, SERVE_NEW = 16, 32
 # decode past the window against the full-sequence forward, f32, one
 # rec, rec, attn group at full width: f32 on both sides, so the same 1e-3
 # of the logits' std as the xlstm gate, and the rglru kernel's rtol
@@ -281,7 +308,7 @@ WRAP_F32_ATOL_PER_STD, WRAP_F32_RTOL = 1e-3, 1e-4
 TRAIN_GRANITE_LAYERS, TRAIN_GRANITE_S, TRAIN_STEPS = 8, 4096, 4
 TRAIN_REC_S = 2048                     # recurrentgemma-2b's first group
 # xlstm-125m at full width and depth through launch/train.py
-TRAIN_XLSTM_B, TRAIN_XLSTM_S, TRAIN_XLSTM_STEPS = 8, 512, 6
+TRAIN_XLSTM_B, TRAIN_XLSTM_S, TRAIN_XLSTM_STEPS = 8, 512, 4
 # per-leaf relative L2 error of the step-0 grads, "cuda" plan against
 # "plain" plan, same weights and batch.  In f32 the plans differ by the
 # kernels' f32 error only (flash-attention 2e-5): 1e-4.  In bf16 the two
@@ -302,9 +329,10 @@ MOE, KIMI = "qwen3-moe-30b-a3b", "kimi-k2-1t-a32b"
 MOE_S, KIMI_S = 2048, 1024            # prefill-moe sequences, B=1
 MOE_AGREE_MIN = 0.9
 MOE_F32_ATOL_PER_STD, MOE_F32_RTOL = 1e-3, 2e-5
-# serve-moe: 8 requests of 12-20 prompt tokens and 16 new (each decode
-# step reads every expert's weights: ~58 GB, >= 17 ms at 3.35 TB/s)
-SERVE_MOE_N, SERVE_MOE_PROMPT, SERVE_MOE_NEW = 8, (12, 20), 16
+# serve-moe: 8 requests of 6-10 prompt tokens and 16 new (each decode
+# step reads every expert's weights: ~58 GB, >= 17 ms at 3.35 TB/s; each
+# prompt token is a B=1 admission step, ~0.3 s on the host)
+SERVE_MOE_N, SERVE_MOE_PROMPT, SERVE_MOE_NEW = 8, (6, 10), 16
 TRAIN_MOE_LAYERS, TRAIN_MOE_S = 2, 4096
 # dense: the remaining dense archs, each served at full depth: prefill at
 # B=1, DENSE_S (starcoder2-3b also at DENSE_LONG_S, past its window); the
@@ -376,6 +404,14 @@ BACKENDS_CHAOS_SEED, BACKENDS_CHAOS_RATE = 7, 0.2
 # one, host-bound: at its default 8 layers its 8 stack programs take ~121 s
 # to time (tools/backends_timing.py --part tile), at 1 layer an eighth
 BACKENDS_EXAMPLE_LAYERS = 1
+# (e): train_e2e's steps, half of them before the simulated crash (each a
+# step of the real xlstm-125m at B=8, S=64, its sLSTM loop host-bound)
+BACKENDS_E2E_STEPS = 6
+# mesh: the engine's requests (~MESH_PROMPT prompt tokens, MESH_NEW new),
+# the train gate's and the sweep's depth and sequence
+MESH_PROMPT, MESH_NEW = 8, 8
+MESH_TRAIN_LAYERS, MESH_S = 2, 4096
+MESH_POINT = {"data": 1, "model": 1}
 
 
 class SmokeFailure(Exception):
@@ -1133,8 +1169,8 @@ def phase_serve(torch, state):
     params = _params(torch, cfg, state)
     eng = ServeEngine(cfg, _plans(cfg)["cuda"], capacity=8, cache_len=2048,
                       params=params)
-    reqs = synthetic_requests(8, cfg.vocab_size, prompt_len=64, tokens=32,
-                              seed=0)
+    reqs = synthetic_requests(8, cfg.vocab_size, prompt_len=SERVE_PROMPT,
+                              tokens=SERVE_NEW, seed=0)
     eng.run(reqs[:1])                                   # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1439,7 +1475,7 @@ def phase_serve_recurrent(torch, state):
                                f"sequential: {diff}")
         log(f"serve {name}: {len(reqs)} requests, batched == sequential "
             f"token for token")
-        _serve_long(torch, cfg, eng)
+        _serve_long(torch, cfg, params)
         if cfg.window_size:
             _check_window_wrap(torch, cfg, params)
         _trace_decode(torch, cfg, params)
@@ -1454,11 +1490,17 @@ def _check_completed(name, reqs, done):
         raise SmokeFailure(f"{name}: not every request completed")
 
 
-def _serve_long(torch, cfg, eng):
-    """The long load (see SERVE_LONG_NEW): tok/s and peak memory, every
-    request complete, and the repeated request's stream equal to the
-    first's although it ran in another slot, admitted later."""
+def _serve_long(torch, full_cfg, full_params):
+    """The long load (see SERVE_LONG_NEW) on the arch cut to its first
+    pattern of block kinds (one layer of each kind it has): tok/s and peak
+    memory, every request complete, and the repeated request's stream
+    equal to the first's although it ran in another slot, admitted
+    later."""
     from repro_torch.launch.serve import synthetic_requests
+    from repro_torch.serve.engine import ServeEngine
+    cfg, params = _first_group(full_cfg, full_params)
+    eng = ServeEngine(cfg, _plans(cfg)["cuda"], capacity=8, cache_len=2048,
+                      params=params)
     long = [dataclasses.replace(r, rid=f"long{i}") for i, r in enumerate(
         synthetic_requests(7, cfg.vocab_size, prompt_len=64,
                            tokens=SERVE_LONG_NEW, seed=1))]
@@ -1474,7 +1516,8 @@ def _serve_long(torch, cfg, eng):
     st, peak = eng.stats, torch.cuda.max_memory_allocated()
     longest = max(len(r.prompt) + r.max_new_tokens for r in reqs)
     log(f"serve {cfg.name} long load: {st.summary()}")
-    log(f"serve {cfg.name} long load: {len(reqs)} requests on "
+    log(f"serve {cfg.name} long load, {cfg.num_layers} layers "
+        f"{cfg.block_kinds()}: {len(reqs)} requests on "
         f"{eng.capacity} slots, longest sequence {longest} tokens (window "
         f"{cfg.window_size or 'none'}); prefill {st.prefill_tok_s:.1f} tok/s "
         f"({st.n_prefill_tokens} tokens in {st.prefill_s:.2f}s), decode "
@@ -1642,7 +1685,7 @@ def _prefill_once(torch, cfg, params, inputs, label, want_fa):
 def _profile_prefill(torch, prefill, params, tokens, label):
     """torch.profiler over one prefill call: wall (under the profiler),
     device busy, idle share, ``cudaLaunchKernel`` calls and the top device
-    operations."""
+    operations, logged; returns the first four."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1661,6 +1704,10 @@ def _profile_prefill(torch, prefill, params, tokens, label):
     for a in sorted(kernels, key=_device_us, reverse=True)[:8]:
         log(f"  device {_device_us(a) / 1e3:8.3f} ms  x{a.count:<5d} "
             f"{a.key[:70]}")
+    # no device events recorded: the idle share is not measured
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "idle_share": 1 - busy / wall if busy > 0 else None,
+            "launch_calls": calls}
 
 
 def _compare_moe_plans(torch, cfg, params, tokens, label):
@@ -3556,8 +3603,8 @@ def _backends_examples(torch, state, tmp):
     process --layers 1`` on the card, the reference's spec (block_q 16)
     with kernel {plain, cuda} (rc 0, no failed row, the Continue run
     scores nothing) and ``python -m repro_torch.examples.train_e2e --full
-    --steps 20`` (finite losses, the restart resumes from its
-    checkpoint)."""
+    --steps BACKENDS_E2E_STEPS`` (finite losses, the restart resumes from
+    its checkpoint)."""
     import os
 
     work = tmp / "examples"
@@ -3568,7 +3615,8 @@ def _backends_examples(torch, state, tmp):
     for name, args in (("compar_sweep_json", ["--backend", "process",
                                               "--layers",
                                               str(BACKENDS_EXAMPLE_LAYERS)]),
-                       ("train_e2e", ["--full", "--steps", "20"])):
+                       ("train_e2e", ["--full", "--steps",
+                                      str(BACKENDS_E2E_STEPS)])):
         t0 = time.perf_counter()
         r = subprocess.run([sys.executable, "-m",
                             f"repro_torch.examples.{name}", *args],
@@ -3596,7 +3644,7 @@ def _backends_examples(torch, state, tmp):
             resumed = re.findall(r"resumed from step (\d+)", out)
             info[name].update(losses=losses, resumed=resumed)
             if not losses or not all(math.isfinite(x) for x in losses) or \
-                    resumed != ["10"]:
+                    resumed != [str(BACKENDS_E2E_STEPS // 2)]:
                 fail.append(f"{name}: losses {losses}, resumed {resumed}")
     line = {"backends": "e", **info, "gates_failed": fail}
     print(json.dumps(line), flush=True)
@@ -3605,6 +3653,344 @@ def _backends_examples(torch, state, tmp):
         f"{'ok' if not fail else 'FAIL'}")
     if fail:
         raise SmokeFailure(f"backends e: {fail}")
+
+
+def phase_mesh(torch, state):
+    """The port on a (1, 1) DeviceMesh of a world-size-1 NCCL group (see
+    the module docstring); the group goes at the end, pass or fail."""
+    from repro_torch.core.meshspec import MeshSpec
+    from repro_torch.launch.mesh import destroy_group, device_mesh
+    _free_params(torch, state)
+    t0 = time.perf_counter()
+    mesh = device_mesh((1, 1), ("data", "model"), "cuda")
+    spec = MeshSpec.from_mesh(mesh)
+    import torch.distributed as dist
+    line = {"mesh": "group", "backend": dist.get_backend(),
+            "world_size": dist.get_world_size(), "key": spec.key(),
+            "mid": spec.mid, "shape": list(mesh.shape),
+            "axes": list(mesh.mesh_dim_names),
+            "group_s": time.perf_counter() - t0}
+    print(json.dumps(line), flush=True)
+    log(f"mesh: {line}")
+    try:
+        for part, run, arg in (("prefill", _mesh_prefill, mesh),
+                               ("serve", _mesh_serve, mesh),
+                               ("train", _mesh_train, mesh),
+                               ("sweep", _mesh_sweep, spec)):
+            t0 = time.perf_counter()
+            run(torch, state, arg)
+            log(f"mesh: part {part} {time.perf_counter() - t0:.1f}s")
+    finally:
+        destroy_group()
+        left = stop_descendants()
+    if left:
+        raise SmokeFailure(f"mesh: processes left: {left}")
+    log("mesh: group destroyed, no process left")
+
+
+def _mesh_plan(cfg, provider, kernel="cuda", remat="none"):
+    from repro_torch.core.plan import uniform_plan
+    from repro_torch.models.context import SegmentClause
+    return uniform_plan(cfg, provider, frozenset(),
+                        SegmentClause(remat=remat, kernel=kernel))
+
+
+def _placed(cfg, params, plan, mesh):
+    """``params`` as DTensors by ``plan``'s rules, and the count of leaves
+    by placement."""
+    from collections import Counter
+    from repro_torch.core.plan import segment_rules
+    from repro_torch.models.model import model_specs
+    from repro_torch.models.params import place_params, tree_leaves
+    placed = place_params(params, model_specs(cfg),
+                          segment_rules(cfg, plan, mesh))
+    counts = Counter(str(tuple(t.placements)) for t in tree_leaves(placed))
+    return placed, dict(sorted(counts.items()))
+
+
+def _mesh_prefill(torch, state, mesh):
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.serve.step import make_prefill
+    cfg = get_arch("granite-8b")
+    params = _params(torch, cfg, state)
+    gen = torch.Generator().manual_seed(7)
+    S = 2048
+    tokens = torch.randint(0, cfg.vocab_size, (1, S), generator=gen).cuda()
+    gib = lambda: torch.cuda.memory_allocated() / 2**30    # noqa: E731
+
+    def timed(fn, p, label):
+        """A warm-up call, then one timed call of ``fn`` on the S tokens,
+        and one more under the profiler (its idle share)."""
+        with torch.no_grad():
+            fn(p, {"tokens": tokens[:, :128]})
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            out = fn(p, {"tokens": tokens})
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = dict(LAUNCHES)
+            trace = _profile_prefill(torch, fn, p, tokens, label)
+        return out, dt * 1e3, launches, trace
+
+    want, want_ms, _, want_trace = timed(
+        make_prefill(cfg, _mesh_plan(cfg, "tensor_par")), params,
+        "granite-8b meshless")
+    fail, parts = [], {}
+    for provider in ("tensor_par", "fsdp"):
+        plan = _mesh_plan(cfg, provider)
+        before = gib()
+        placed, counts = _placed(cfg, params, plan, mesh)
+        torch.cuda.synchronize()
+        placed_gib = gib() - before
+        got, dt, launches, trace = timed(
+            make_prefill(cfg, plan, mesh=mesh), placed,
+            f"granite-8b mesh {provider}")
+        state.setdefault("launches", {})[
+            f"mesh prefill granite-8b {provider}"] = launches
+        diff = (got - want).abs()
+        ok = bool((diff <= PREFILL_ATOL + PREFILL_RTOL * want.abs()).all())
+        parts[provider] = {"leaves_by_placement": counts,
+                           "prefill_ms": dt,
+                           "profiled": trace,
+                           "allocated_by_placing_gib": placed_gib,
+                           "max_abs_diff": float(diff.max()),
+                           "finite": bool(torch.isfinite(got).all()),
+                           "launches": launches}
+        if not ok:
+            fail.append(f"{provider}: logits differ from meshless "
+                        f"(max {float(diff.max()):.4g})")
+        if launches["flash_attention"] != cfg.num_layers:
+            fail.append(f"{provider}: {launches['flash_attention']} "
+                        f"flash-attention launches, expected "
+                        f"{cfg.num_layers}")
+        del placed, got
+        torch.cuda.empty_cache()
+    line = {"mesh": "prefill", "arch": cfg.name, "layers": cfg.num_layers,
+            "B": 1, "S": S, "plan_kernel": "cuda",
+            "meshless": {"prefill_ms": want_ms, "profiled": want_trace},
+            "providers": parts,
+            "atol": PREFILL_ATOL, "rtol": PREFILL_RTOL, "gates_failed": fail}
+    print(json.dumps(line), flush=True)
+    log(f"mesh prefill: {'ok' if not fail else 'FAIL'}")
+    if fail:
+        raise SmokeFailure(f"mesh prefill: {fail}")
+
+
+def _mesh_serve(torch, state, mesh):
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.serve import synthetic_requests
+    from repro_torch.serve.engine import ServeEngine
+    cfg = get_arch("granite-8b")
+    plan = _mesh_plan(cfg, "tensor_par")
+    gib = lambda: torch.cuda.memory_allocated() / 2**30    # noqa: E731
+    params = _params(torch, cfg, state)
+    alloc = {"weights": gib()}
+    placed, _ = _placed(cfg, params, plan, mesh)
+    alloc["placed"] = gib()
+    eng = ServeEngine(cfg, plan, capacity=8, cache_len=2048, params=placed,
+                      mesh=mesh)
+    alloc["engine"] = gib()
+    reqs = synthetic_requests(8, cfg.vocab_size, prompt_len=MESH_PROMPT,
+                              tokens=MESH_NEW, seed=3)
+    eng.run(reqs[:1])                                   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    batched = eng.run(reqs)
+    launches = dict(LAUNCHES)
+    st = eng.stats
+    peak = torch.cuda.max_memory_allocated()
+    sequential = eng.run(reqs, max_active=1)
+    prompt_tokens = sum(len(r.prompt) for r in reqs)
+    state.setdefault("launches", {})["mesh serve granite-8b"] = launches
+    fail = []
+    if st.n_completed != len(reqs) or any(
+            len(batched[r.rid].tokens) != r.max_new_tokens for r in reqs):
+        fail.append("not every request completed")
+    diff = [r.rid for r in reqs
+            if batched[r.rid].tokens != sequential[r.rid].tokens]
+    if diff:
+        fail.append(f"batched streams differ from sequential: {diff}")
+    if launches["flash_decode"] != cfg.num_layers * prompt_tokens:
+        fail.append(f"{launches['flash_decode']} flash-decode launches, "
+                    f"expected {cfg.num_layers * prompt_tokens}")
+    line = {"mesh": "serve", "arch": cfg.name, "provider": "tensor_par",
+            "requests": len(reqs), "prompt_tokens": prompt_tokens,
+            "new_tokens": MESH_NEW, "prefill_tok_s": st.prefill_tok_s,
+            "decode_tok_s": st.decode_tok_s, "elapsed_s": st.elapsed_s,
+            "peak_gib": peak / 2**30, "allocated_gib": alloc,
+            "launches": launches,
+            "batched_eq_sequential": not diff, "gates_failed": fail}
+    print(json.dumps(line), flush=True)
+    log(f"mesh serve: {st.summary()}; {'ok' if not fail else 'FAIL'}")
+    if fail:
+        raise SmokeFailure(f"mesh serve: {fail}")
+
+
+def _mesh_grads(torch, cfg, plan, params, batch, mesh):
+    """Step-0 grads of ``plan`` on ``mesh`` against meshless, same weights
+    and batch: (worst per-leaf relative L2, the rows, the losses)."""
+    from repro_torch.core.plan import segment_rules
+    from repro_torch.models.model import model_specs
+    from repro_torch.models.params import (place_params, tree_leaves,
+                                           tree_map_with_path)
+    from repro_torch.runtime.sharding import full
+    from repro_torch.train.step import make_grads, place_batch
+    loss0, _, g0 = make_grads(cfg, plan, device="cuda")(params, batch)
+    placed = place_params(params, model_specs(cfg),
+                          segment_rules(cfg, plan, mesh))
+    loss1, _, g1 = make_grads(cfg, plan, device="cuda", mesh=mesh)(
+        placed, place_batch(batch, cfg, plan, mesh))
+    paths = tree_leaves(tree_map_with_path(lambda p, _: "/".join(p),
+                                           model_specs(cfg)))
+    worst, rows = 0.0, {}
+    for path, a, b in zip(paths, tree_leaves(g0), tree_leaves(g1)):
+        b = full(b).float()
+        rel = float((b - a.float()).norm() / a.float().norm())
+        rows[path] = rel
+        worst = max(worst, rel)
+    return worst, rows, (float(loss0), float(loss1))
+
+
+def _mesh_train(torch, state, mesh):
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.train.step import (init_train_state, make_train_step,
+                                        place_batch)
+    _free_params(torch, state)          # the full model's weights go first
+    full_cfg = get_arch("granite-8b")
+    fail, gates = [], {}
+    for layers, dt in ((1, "float32"), (MESH_TRAIN_LAYERS, "bfloat16")):
+        cfg = dataclasses.replace(full_cfg, num_layers=layers, dtype=dt)
+        plan = _mesh_plan(cfg, "tensor_par", remat="dots")
+        params, _ = init_train_state(cfg, plan,
+                                     torch.Generator().manual_seed(0), "cuda")
+        batch = _train_data(cfg, MESH_S).batch_at(0)
+        worst, rows, losses = _mesh_grads(torch, cfg, plan, params, batch,
+                                          mesh)
+        bound = TRAIN_GRAD_REL_L2[dt]
+        gates[f"{layers} layers {dt}"] = {"worst_rel_l2": worst,
+                                          "bound": bound, "losses": losses,
+                                          "per_leaf": rows}
+        if not worst < bound:
+            fail.append(f"{layers} layers {dt}: grads rel L2 {worst:.3g} "
+                        f">= {bound}")
+        del params
+        torch.cuda.empty_cache()
+    plan = _mesh_plan(cfg, "tensor_par", remat="dots")
+    params, opt = init_train_state(cfg, plan,
+                                   torch.Generator().manual_seed(0), "cuda",
+                                   mesh=mesh)
+    step = make_train_step(cfg, plan, device="cuda", mesh=mesh)
+    data = _train_data(cfg, MESH_S)
+    reset_launches()
+    losses, times = [], []
+    for s in range(2):
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt,
+                              place_batch(data.batch_at(s), cfg, plan, mesh))
+        losses.append(float(m["total_loss"]))
+        times.append(time.perf_counter() - t0)
+    launches = dict(LAUNCHES)
+    state.setdefault("launches", {})["mesh train granite-8b"] = launches
+    if not all(math.isfinite(x) for x in losses) or opt.step != 2:
+        fail.append(f"AdamW steps: losses {losses}, step {opt.step}")
+    line = {"mesh": "train", "arch": cfg.name, "S": MESH_S,
+            "provider": "tensor_par", "remat": "dots", "grads": gates,
+            "adamw_losses": losses, "step_ms": [t * 1e3 for t in times],
+            "launches": launches, "gates_failed": fail}
+    print(json.dumps(line), flush=True)
+    log(f"mesh train: {[(k, v['worst_rel_l2']) for k, v in gates.items()]}"
+        f", AdamW losses {losses}; {'ok' if not fail else 'FAIL'}")
+    del params, opt
+    torch.cuda.empty_cache()
+    if fail:
+        raise SmokeFailure(f"mesh train: {fail}")
+
+
+def _mesh_sweep(torch, state, spec):
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.tuner import ComParTuner
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    cfg = dataclasses.replace(get_arch("granite-8b"),
+                              num_layers=MESH_TRAIN_LAYERS)
+    shape = ShapeConfig(f"train-1x{MESH_S}", MESH_S, 1, "train")
+    space = {"remat": ("none",), "kernel": ("plain", "cuda")}
+    points = [None, MESH_POINT]
+    kw = dict(providers=["tensor_par", "fsdp"], clause_space=space,
+              max_flags=0, mesh_space=points)
+    fail = []
+    reset_launches()
+    t0 = time.perf_counter()
+    with ComParTuner(cfg, shape, device="cuda", executor="wallclock",
+                     timeout_s=600) as tuner:
+        plan, rep = tuner.sweep(**kw)
+        rows = _mesh_rows(tuner)
+    wall = time.perf_counter() - t0
+    state.setdefault("launches", {})["mesh sweep granite-8b"] = \
+        dict(LAUNCHES)
+    if rep.n_done != rep.n_combinations:
+        fail.append(f"wall clock: {rep.n_done} of {rep.n_combinations} "
+                    f"rows done")
+    dry = {}
+    for backend in ("sequential", "process"):
+        t1 = time.perf_counter()
+        with ComParTuner(cfg, shape, device="cuda", executor="dryrun",
+                         timeout_s=600) as dt:
+            p, r = dt.sweep(backend=backend, workers=2, **kw)
+            dry[backend] = {"rows": _mesh_rows(dt), "plan": json.dumps(
+                {k: p.to_json()[k] for k in ("segments", "knobs", "mesh")},
+                sort_keys=True),
+                            "n_done": r.n_done, "n": r.n_combinations,
+                            "per_mesh_total_s": r.per_mesh_total_s,
+                            "sweep_s": time.perf_counter() - t1}
+    same = dry["sequential"]["rows"] == dry["process"]["rows"] and \
+        dry["sequential"]["plan"] == dry["process"]["plan"]
+    if not same:
+        fail.append("dry run: process rows or plan differ from in-process")
+    for b, d in dry.items():
+        if d["n_done"] != d["n"]:
+            fail.append(f"dry run {b}: {d['n_done']} of {d['n']} rows done")
+    line = {"mesh": "sweep", "arch": cfg.name, "layers": cfg.num_layers,
+            "shape": [1, MESH_S, "train"], "points": [
+                "local" if m is None else spec.key() for m in points],
+            "rows_per_point": _rows_per_point(rows),
+            "n_combinations": rep.n_combinations,
+            "unique_programs": rep.n_scored,
+            "per_mesh_total_s": rep.per_mesh_total_s,
+            "plan_mesh": plan.mesh.key() if plan.mesh else None,
+            "plan": {s: c.label() for s, c in sorted(plan.segments.items())},
+            "sweep_s": wall,
+            "dry_run": {b: {"per_mesh_total_s": d["per_mesh_total_s"],
+                            "sweep_s": d["sweep_s"], "n_done": d["n_done"]}
+                        for b, d in dry.items()},
+            "dry_rows_and_plan_identical": same,
+            "launches": state["launches"]["mesh sweep granite-8b"],
+            "gates_failed": fail}
+    print(json.dumps(line), flush=True)
+    log(f"mesh sweep: {rep.summary()}; {'ok' if not fail else 'FAIL'}")
+    if fail:
+        raise SmokeFailure(f"mesh sweep: {fail}")
+
+
+def _mesh_rows(tuner):
+    """Every row of the tuner's project, by (segment, row id), as bytes."""
+    return json.dumps(sorted(
+        (r["segment"], r["cid"], r["status"], r["cost"])
+        for r in tuner.db.results(tuner.project)), sort_keys=True)
+
+
+def _rows_per_point(rows):
+    out = {}
+    for seg, cid, status, _ in json.loads(rows):
+        point = cid.split("#")[1] if "#" in cid else "unswept"
+        out.setdefault(point, {}).setdefault(status, 0)
+        out[point][status] += 1
+    return out
 
 
 KERNELS = {
@@ -3620,12 +4006,16 @@ KERNELS = {
                          "tune granite-8b", "tune recurrentgemma-2b",
                          "tune lint granite-8b",
                          "backends stablelm-3b sequential",
-                         "backends stablelm-3b")),
+                         "backends stablelm-3b",
+                         "mesh prefill granite-8b tensor_par",
+                         "mesh prefill granite-8b fsdp",
+                         "mesh train granite-8b", "mesh sweep granite-8b")),
     "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
                      "src/repro/kernels/flash_decode.py:58",
                      ("serve granite-8b", f"serve {MOE}",
                       *(f"serve {a}" for a in DENSE),
-                      "tune granite-8b serving", "tune serve granite-8b")),
+                      "tune granite-8b serving", "tune serve granite-8b",
+                      "mesh serve granite-8b")),
     "rglru": ("src/repro_torch/kernels/csrc/rglru.cu",
               "src/repro/kernels/rglru.py:46",
               ("prefill recurrentgemma-2b", "train recurrentgemma-2b",
@@ -3797,7 +4187,8 @@ def main(argv=None) -> int:
                "prefill-moe": phase_prefill_moe,
                "serve-moe": phase_serve_moe, "dense": phase_dense,
                "train": phase_train, "sweep": phase_sweep,
-               "tune": phase_tune, "backends": phase_backends}
+               "tune": phase_tune, "backends": phase_backends,
+               "mesh": phase_mesh}
     adopt_orphans()
     failed = None
     try:

@@ -58,11 +58,16 @@ bytes (the caching allocator aligns every block), flash-decode's
 ``pos < 0``, and rglru's (the models hand the scan two contiguous (B,S,dr)
 f32 arrays), so no rule predicts them.
 
-Rules of the reference with no site in the port:
+The mesh rules, as the reference's:
 
-``mesh-devices``, ``shard-fallback``  need a mesh; the port is meshless
-                  (a mesh raises, ROADMAP Queue 1 item 4), and at
-                  ``mesh=None`` the reference's give nothing either.
+``mesh-devices``  a swept MeshSpec point this process cannot materialize
+                  (``MeshSpec.check_local``: a default group of another
+                  world size).  Gated by ``check_devices``.       [error]
+``shard-fallback``  a logical axis whose mapped mesh axes do not divide
+                  its dim: silently replicated.                    [warn]
+
+A rule of the reference with no site in the port:
+
 ``donate-unshaped``  PyTorch has no buffer donation.  ``GlobalKnobs.
                   donate`` reaches no program of the port: the train step
                   updates the parameters in place whatever it says
@@ -78,9 +83,103 @@ from typing import Dict, List, Optional, Sequence
 
 from repro_torch.analysis.diagnostics import ERROR, WARN, Diagnostic
 from repro_torch.configs.base import ArchConfig, ShapeConfig
-from repro_torch.core.combinator import (Combination, GlobalKnobs,
-                                         require_meshless)
+from repro_torch.core.combinator import Combination, GlobalKnobs
+from repro_torch.core.meshspec import MeshSpec, MeshUnsatisfiable
 from repro_torch.core.segment import Segment, fragment
+from repro_torch.runtime.sharding import Rules, mesh_axis_sizes
+
+
+def _logical_dims(cfg: ArchConfig, shape: ShapeConfig) -> Dict[str, int]:
+    """Canonical tensor dim per logical axis name: what the provider
+    mappings are resolved against without a concrete tensor."""
+    return {
+        "batch": shape.global_batch,
+        "seq": shape.seq_len,
+        "kv_seq": shape.seq_len,
+        "embed": cfg.d_model,
+        "vocab": cfg.vocab_size,
+        "heads": cfg.num_heads,
+        "kv_heads": cfg.num_kv_heads,
+        "ffn": cfg.d_ff,
+        "expert_ffn": cfg.d_ff,
+        "experts": cfg.num_experts,
+        "rnn": int(cfg.expand_factor * cfg.d_model),
+    }
+
+
+def resolver(mapping: Dict[str, object], axis_sizes: Dict[str, int]):
+    """A ``Rules`` resolving against declarative axis sizes, no live mesh:
+    the production resolution itself."""
+    r = Rules(mapping, None)
+    r.axis_sizes = dict(axis_sizes)
+    return r
+
+
+def residual_pspec(cfg: ArchConfig, shape: ShapeConfig, combo: Combination,
+                   seg: Segment, axis_sizes: Dict[str, int]):
+    """The resolved partition of the residual stream entering/leaving
+    ``seg`` under ``combo``: the cross-segment boundary contract."""
+    from repro_torch.core.providers import get_provider
+    mapping = get_provider(combo.provider).mapping(
+        cfg, axis_sizes, combo.flags, seg)
+    r = resolver(mapping, axis_sizes)
+    if shape.kind == "decode":
+        axes = ("batch", "embed")
+        dims = (shape.global_batch, cfg.d_model)
+    else:
+        axes = ("batch", "seq", "embed")
+        dims = (shape.global_batch, shape.seq_len, cfg.d_model)
+    return tuple(r.pspec(axes, dims))
+
+
+def _rule_mesh_devices(mesh) -> List[Diagnostic]:
+    if not isinstance(mesh, MeshSpec) or mesh.is_local:
+        return []
+    try:
+        mesh.check_local()
+    except MeshUnsatisfiable as e:
+        return [Diagnostic(
+            "mesh-devices", ERROR, str(e),
+            evidence={"mesh": mesh.key(), "needs": mesh.n_devices})]
+    return []
+
+
+def _rule_shard_fallback(cfg, shape, combo, seg,
+                         axis_sizes) -> List[Diagnostic]:
+    if not axis_sizes:
+        return []
+    from repro_torch.core.providers import get_provider
+    mapping = get_provider(combo.provider).mapping(
+        cfg, axis_sizes, combo.flags, seg)
+    r = resolver(mapping, axis_sizes)
+    dims = _logical_dims(cfg, shape)
+    out: List[Diagnostic] = []
+    for name, cands in sorted(r.mapping.items()):
+        if cands[0] is None or name not in dims:
+            continue
+        # only a divisibility fallback is news: a candidate whose axes
+        # are absent from this mesh is structural
+        reachable = []
+        for cand in cands:
+            if cand is None:
+                continue
+            axes = (cand,) if isinstance(cand, str) else tuple(cand)
+            axes = tuple(a for a in axes if a in axis_sizes)
+            if axes:
+                reachable.append(axes)
+        if not reachable:
+            continue
+        dim = dims[name]
+        if r._resolve_one(name, dim, set()) is None:
+            out.append(Diagnostic(
+                "shard-fallback", WARN,
+                f"logical axis {name!r} (dim {dim}) not divisible by "
+                f"its mapped mesh axes {reachable[0]!r} under mesh "
+                f"{axis_sizes}: silently replicated",
+                segment=seg.name,
+                evidence={"axis": name, "dim": dim,
+                          "mesh": dict(axis_sizes)}))
+    return out
 
 
 def _clamp_chunk(chunk: int, S: int) -> int:
@@ -290,22 +389,26 @@ def analyze_point(cfg: ArchConfig, shape: ShapeConfig, combo: Combination,
                   trace: bool = False) -> List[Diagnostic]:
     """Lint one sweep point without running it.
 
-    ``mesh`` takes only ``None`` (ROADMAP Queue 1 item 4), so
-    ``check_devices`` (the reference's host-local mesh check) has nothing
-    to check.  ``segments`` defaults to every segment of ``cfg`` (pass
+    ``mesh`` is a :class:`MeshSpec` (a swept point), a live
+    ``DeviceMesh`` (a fixed mesh) or ``None``; ``check_devices`` enables
+    the process-local mesh check (meaningful only where the linting
+    process is the scoring one).  ``segments`` defaults to every segment of ``cfg`` (pass
     one to lint a single scheduler row).  ``trace`` enables the
     abstract-trace rule: cheap per point at smoke size but not free, so
     the scheduler's bulk path leaves it off and the plan lint turns it on.
 
     Returns structured :class:`Diagnostic` records, errors first.
     """
-    require_meshless(mesh)
     segs = list(segments) if segments is not None else list(fragment(cfg))
+    axis_sizes = mesh_axis_sizes(mesh)
     diags: List[Diagnostic] = []
     diags += _rule_microbatch(shape, knobs)
     diags += _rule_opt_dtype(shape, knobs)
+    if check_devices:
+        diags += _rule_mesh_devices(mesh)
     for seg in segs:
         diags += _rule_tiles(cfg, shape, combo, seg)
+        diags += _rule_shard_fallback(cfg, shape, combo, seg, axis_sizes)
         diags += _rule_dtype_flow(cfg, shape, combo, seg)
         if trace:
             diags += _rule_trace(cfg, shape, combo, knobs, seg)

@@ -46,9 +46,13 @@ def _flatten(tree, prefix: str = "") -> Dict[str, Any]:
 
 
 def _host(leaf) -> np.ndarray:
-    """A leaf as a host numpy array (bf16 as its uint16 bits)."""
+    """A leaf as a host numpy array (bf16 as its uint16 bits); a DTensor
+    leaf as its global value (every rank gathers)."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu()
+        t = leaf.detach()
+        if hasattr(t, "full_tensor"):
+            t = t.full_tensor()
+        t = t.cpu()
         if t.dtype == torch.bfloat16:
             return t.view(torch.uint16).numpy()
         return t.numpy()
@@ -78,7 +82,19 @@ def _unflatten(tree_like, flat: Dict[str, np.ndarray], bf16, prefix=""):
     if key in bf16:
         t = t.view(torch.bfloat16)
     t = t.to(device=tree_like.device, dtype=tree_like.dtype)
+    if hasattr(tree_like, "device_mesh"):       # back to the leaf's layout
+        from repro_torch.runtime.sharding import Sharding, distribute
+        t = distribute(t, Sharding(tree_like.device_mesh,
+                                   tuple(tree_like.placements)))
     return t.requires_grad_(tree_like.requires_grad)
+
+
+def _writer() -> bool:
+    """Whether this process writes checkpoints: rank 0 of the default
+    group, or the only process."""
+    import torch.distributed as dist
+    return not (dist.is_available() and dist.is_initialized()) \
+        or dist.get_rank() == 0
 
 
 class CheckpointStore:
@@ -93,15 +109,18 @@ class CheckpointStore:
 
     def save(self, step: int, state: Dict[str, Any],
              extra: Optional[Dict] = None):
-        """Synchronous atomic save. ``state``: name -> tree."""
-        return self._write(step, {name: _host_tree(tree)
-                                  for name, tree in state.items()}, extra)
+        """Synchronous atomic save. ``state``: name -> tree.  Under a
+        process group every rank gathers and rank 0 writes."""
+        host = {name: _host_tree(tree) for name, tree in state.items()}
+        return self._write(step, host, extra) if _writer() else None
 
     def save_async(self, step: int, state: Dict[str, Any],
                    extra: Optional[Dict] = None):
         """Copy to host memory now, write in the background."""
         host = {name: _host_tree(tree) for name, tree in state.items()}
         self.wait()
+        if not _writer():
+            return
         self._thread = threading.Thread(
             target=self._write, args=(step, host, extra), daemon=True)
         self._thread.start()

@@ -15,9 +15,9 @@ format: pure-JSON ``to_json``/``from_json`` on both, arch and shape
 rebuilt from the config registry by name (``repro_torch.configs.registry.
 arch_from_spec``), the executor by :func:`executor_from_spec`.  The process
 workers (``process.py``) and the scoring server (``server.py``) speak it.
-The port is meshless: a job's ``mesh`` is always ``None`` and its
-``mesh_key`` empty, and an executor spec that carries a mesh raises
-(ROADMAP Queue 1 item 4).
+A job's ``mesh`` is a :class:`~repro_torch.core.meshspec.MeshSpec` (the
+swept point) that whichever process scores the job materializes for
+itself; an executor spec carries its fixed mesh the same way.
 """
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ import threading
 from dataclasses import dataclass, field
 from typing import Dict, Iterator, Optional, Sequence, Tuple
 
+from repro_torch.core.meshspec import MeshSpec
 from repro_torch.core.combinator import Combination, GlobalKnobs
 from repro_torch.core.segment import Segment
 
@@ -91,10 +92,13 @@ class JobSpec:
     fusion) restores the strict check.  Wire-tolerant: absent on old
     payloads -> 0.0, which only prunes *less*, never wrongly.
 
-    ``mesh`` and ``mesh_key`` are the reference's topology axis: always
-    ``None`` and ``""`` in the port (meshless).  The field layout is the
-    runner's ``SweepJob``, so the thread backend feeds specs straight
-    into ``ParallelSweepRunner``.
+    ``mesh`` is the swept topology point the program is built under, a
+    :class:`~repro_torch.core.meshspec.MeshSpec` that the scoring process
+    materializes (``meshspec.cached_mesh``); ``None`` = the executor's own
+    fixed mesh.  ``mesh_key`` is the score-cache environment column of
+    the job's point (``""`` = the init message's), shipped, not
+    re-derived.  The field layout is the runner's ``SweepJob``, so the
+    thread backend feeds specs straight into ``ParallelSweepRunner``.
     """
     key: str
     seg: Segment
@@ -104,7 +108,7 @@ class JobSpec:
     signature: str = ""
     eff_cid: str = ""
     knobs: Optional[GlobalKnobs] = None
-    mesh: Optional[Dict] = None
+    mesh: Optional[MeshSpec] = None
     mesh_key: str = ""
     slack_s: float = 0.0
 
@@ -115,7 +119,8 @@ class JobSpec:
                 "signature": self.signature, "eff_cid": self.eff_cid,
                 "knobs": self.knobs.to_json()
                 if self.knobs is not None else None,
-                "mesh": self.mesh,
+                "mesh": self.mesh.to_json()
+                if self.mesh is not None else None,
                 "mesh_key": self.mesh_key, "slack_s": self.slack_s}
 
     @classmethod
@@ -127,7 +132,8 @@ class JobSpec:
                    d.get("signature", ""), d.get("eff_cid", ""),
                    GlobalKnobs.from_json(d["knobs"])
                    if d.get("knobs") else None,
-                   d.get("mesh"),
+                   MeshSpec.from_json(d["mesh"])
+                   if d.get("mesh") else None,
                    d.get("mesh_key", ""),
                    float(d.get("slack_s", 0.0)))
 
@@ -196,7 +202,7 @@ class JobGroup:
     members: list = field(default_factory=list)   # [(segment, row_cid), ...]
     knobs: Optional[GlobalKnobs] = None
     scopes: set = field(default_factory=set)
-    mesh: Optional[Dict] = None
+    mesh: Optional[MeshSpec] = None
     mesh_key: str = ""
 
 
@@ -310,18 +316,22 @@ def executor_to_spec(executor) -> Dict:
     The dry run carries its whole ``Hardware`` (a calibrated view from
     ``hardware_from_profile`` included): ``cache_tag`` embeds its name, so
     a worker must score with the parent's model.  The wall clock carries
-    its device.  ``mesh`` is always ``None`` (meshless)."""
+    its device.  A fixed mesh travels as its MeshSpec's JSON; device
+    handles never cross the wire."""
     import dataclasses
 
     from repro_torch.core.executor import (CrashExecutor, DryRunExecutor,
                                            SleepExecutor, WallClockExecutor)
+    mesh = getattr(executor, "mesh", None)
+    mesh_spec = MeshSpec.from_mesh(mesh).to_json() if mesh is not None \
+        else None
     if isinstance(executor, DryRunExecutor):
         return {"kind": "dryrun", "timeout_s": executor.timeout_s,
-                "hw": dataclasses.asdict(executor.hw), "mesh": None}
+                "hw": dataclasses.asdict(executor.hw), "mesh": mesh_spec}
     if isinstance(executor, WallClockExecutor):
         return {"kind": "wallclock", "timeout_s": executor.timeout_s,
                 "repeats": executor.repeats,
-                "device": str(executor.device), "mesh": None}
+                "device": str(executor.device), "mesh": mesh_spec}
     if isinstance(executor, SleepExecutor):
         return {"kind": "sleep", "sleep_s": executor.sleep_s,
                 "timeout_s": executor.timeout_s, "device": executor.device,
@@ -335,28 +345,31 @@ def executor_to_spec(executor) -> Dict:
 def executor_from_spec(spec: Dict, *, allow_test: bool = False):
     """Rebuild an executor in the scoring process.
 
-    A spec with a mesh raises (ROADMAP Queue 1 item 4).  A wall-clock spec
-    whose device this host lacks raises :class:`DeviceUnsatisfiable` (the
-    server's HTTP 400): it is never timed on another device.
+    A fixed mesh is materialized here (``MeshUnsatisfiable`` if this
+    process cannot).  A wall-clock spec whose device this host lacks
+    raises :class:`DeviceUnsatisfiable`; the server answers both with HTTP
+    400: such a spec is never scored elsewhere.
 
     ``allow_test`` admits the fault-injection executors (sleep/crash).
     Local process workers pass True: they trust their parent.  The scoring
     server deserializing *client* specs keeps the default: ``{"kind":
     "crash"}`` from a client would otherwise kill every worker."""
-    from repro_torch.core.combinator import require_meshless
     from repro_torch.core.cost_model import H100, Hardware
+    from repro_torch.core.meshspec import cached_mesh
     from repro_torch.core.executor import (CrashExecutor, DryRunExecutor,
                                            SleepExecutor, WallClockExecutor)
     kind = spec["kind"]
-    require_meshless(spec.get("mesh"))
+    mesh = cached_mesh(MeshSpec.from_json(spec["mesh"])) \
+        if spec.get("mesh") else None
     if kind == "dryrun":
         hw = Hardware(**spec["hw"]) if spec.get("hw") else H100
-        return DryRunExecutor(hw, timeout_s=spec.get("timeout_s"))
+        return DryRunExecutor(hw, timeout_s=spec.get("timeout_s"), mesh=mesh)
     if kind == "wallclock":
         try:
             return WallClockExecutor(spec.get("device", "cuda"),
                                      repeats=spec.get("repeats", 5),
-                                     timeout_s=spec.get("timeout_s"))
+                                     timeout_s=spec.get("timeout_s"),
+                                     mesh=mesh)
         except RuntimeError as e:          # resolve_device: no such device
             raise DeviceUnsatisfiable(str(e)) from None
     if allow_test and kind == "sleep":

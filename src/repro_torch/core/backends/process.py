@@ -45,6 +45,8 @@ from __future__ import annotations
 import logging
 import multiprocessing as mp
 import multiprocessing.connection
+import shutil
+import tempfile
 import time
 from collections import deque
 from typing import Dict, Iterator, List, Optional, Sequence, Set, Tuple
@@ -99,7 +101,6 @@ def _resolve_ctx(start_method: str):
 
 def _score_one(executor, cfg, shape, spec: JobSpec, cache, shape_key: str,
                mesh_key: str) -> JobOutcome:
-    from repro_torch.core.combinator import MESH_PENDING
     from repro_torch.core.executor import CombinationFailed
     env = spec.mesh_key or mesh_key
     if cache is not None and spec.signature:
@@ -107,14 +108,21 @@ def _score_one(executor, cfg, shape, spec: JobSpec, cache, shape_key: str,
         if hit is not None and hit["status"] in (DONE, FAILED):
             return JobOutcome(spec.key, hit["status"], cost=hit["cost"],
                               error=hit["error"], cached=True)
+    kw = {}
     if spec.mesh is not None:
-        # environment-dependent in the reference (another host may have
-        # the devices): transient, so never cached
-        return JobOutcome(spec.key, FAILED, error=MESH_PENDING,
-                          transient=True, kind="mesh")
+        # the swept point: THIS worker materializes it for itself
+        # (memoized across its jobs)
+        from repro_torch.core.meshspec import MeshUnsatisfiable, cached_mesh
+        try:
+            kw["mesh"] = cached_mesh(spec.mesh)
+        except MeshUnsatisfiable as e:
+            # environment-dependent (another process group may satisfy
+            # it): transient, so retryable and never cached
+            return JobOutcome(spec.key, FAILED, error=str(e), transient=True,
+                              kind="mesh")
     try:
         cost = executor.score_segment(cfg, shape, spec.seg, spec.combo,
-                                      knobs=spec.knobs)
+                                      knobs=spec.knobs, **kw)
     except CombinationFailed as e:
         transient = getattr(e, "transient", False)
         return JobOutcome(spec.key, FAILED, error=str(e),
@@ -130,7 +138,9 @@ def _score_one(executor, cfg, shape, spec: JobSpec, cache, shape_key: str,
 def _worker_main(conn, init: Dict):
     """Worker process entry point: build cfg/shape/executor once (warm
     reuse), then serve JobSpec JSON until a ``None`` shutdown message,
-    answered with this process's kernel launch totals.
+    answered with this process's kernel launch totals.  On its way out it
+    destroys the world-size-1 group a swept mesh point made; the group's
+    store lies in the pool's directory, which the parent removes.
 
     A worker that cannot build its executor (a wall-clock spec on a host
     whose CUDA it cannot reach) still reports ready and fails every job it
@@ -139,7 +149,9 @@ def _worker_main(conn, init: Dict):
     from repro_torch.configs.registry import arch_from_spec, shape_from_spec
     from repro_torch.core.db import ScoreCacheReader
     from repro_torch.kernels.build import LAUNCHES
+    from repro_torch.launch import mesh as M
     cache = None
+    M.STORE_ROOT = init.get("tmp_dir")
     try:
         cfg = arch_from_spec(init["arch"])
         shape = shape_from_spec(init["shape"])
@@ -172,6 +184,8 @@ def _worker_main(conn, init: Dict):
     finally:
         if cache is not None:
             cache.close()
+        # the group (and its store) a swept mesh point made in this worker
+        M.destroy_group()
 
 
 # --- parent side -------------------------------------------------------------
@@ -239,10 +253,17 @@ class ProcessBackend(ScoringBackend):
             "db_path": db_path if db_path and db_path != ":memory:" else None,
             "shape_key": shape_key,
             "mesh_key": mesh_key,
+            # the workers' group stores, made with the first worker and
+            # removed on close(), so that a worker killed mid-job leaves
+            # none behind
+            "tmp_dir": None,
         }
 
     # ------------------------------------------------------------------
     def _spawn(self) -> _Worker:
+        if self._init["tmp_dir"] is None:
+            self._init["tmp_dir"] = tempfile.mkdtemp(
+                prefix="repro_torch_workers_")
         parent, child = self._ctx.Pipe(duplex=True)
         proc = self._ctx.Process(target=_worker_main,
                                  args=(child, self._init), daemon=True)
@@ -517,3 +538,6 @@ class ProcessBackend(ScoringBackend):
             except OSError:
                 pass
         self._pool = []
+        if self._init["tmp_dir"] is not None:
+            shutil.rmtree(self._init["tmp_dir"], ignore_errors=True)
+            self._init["tmp_dir"] = None

@@ -247,10 +247,10 @@ class SweepScoringServer:
         # cannot be reconstructed here (registry version skew, malformed
         # wire data) are a 400, not a batch that 'transiently' fails on
         # every resubmit; so is a wall-clock device this host lacks
-        # (DeviceUnsatisfiable) and a mesh (ROADMAP Queue 1 item 4)
+        # (DeviceUnsatisfiable) and a mesh it cannot build
+        # (MeshUnsatisfiable)
         from repro_torch.configs.registry import (arch_from_spec,
                                                   shape_from_spec)
-        from repro_torch.core.combinator import require_meshless
         executor = executor_from_spec(init["executor"],
                                       allow_test=self.allow_test)
         arch_from_spec(init["arch"])
@@ -258,7 +258,9 @@ class SweepScoringServer:
         self._check_cache_tag(executor, init.get("mesh_key", ""))
         for jd in payload["jobs"]:
             spec = JobSpec.from_json(jd)
-            require_meshless(spec.mesh)
+            if spec.mesh is not None:
+                # a protocol error (HTTP 400): retrying can never succeed
+                spec.mesh.check_local()
             self._check_cache_tag(executor, spec.mesh_key)
         bid = batch_id(payload)
         with self._lock:

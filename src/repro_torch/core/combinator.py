@@ -12,8 +12,8 @@ reported beside it.
 
 Plans and sweep inputs written for the JAX package read unchanged: its
 clause ``kernel`` values ``"xla"`` and ``"pallas"`` map to the port's
-``"plain"`` and ``"cuda"``.  The port is meshless: wherever the reference
-takes a mesh point, the port takes only ``None`` (ROADMAP Queue 1 item 4).
+``"plain"`` and ``"cuda"``.  A mesh point is a live ``DeviceMesh`` or a
+:class:`~repro_torch.core.meshspec.MeshSpec`, as the reference's.
 """
 from __future__ import annotations
 
@@ -28,9 +28,6 @@ from repro_torch.models.context import SegmentClause
 
 #: the reference's clause ``kernel`` values -> the port's
 KERNEL_FROM_REFERENCE = {"xla": "plain", "pallas": "cuda"}
-
-MESH_PENDING = ("meshes are not ported yet: ROADMAP Queue 1 item 4 "
-                "(multi-device)")
 
 #: default "directive clause" sweep space (the OpenMP schedule/chunk analogue)
 DEFAULT_CLAUSE_SPACE: Dict[str, Tuple] = {
@@ -56,11 +53,6 @@ DEFAULT_GLOBAL_SPACE: Dict[str, Tuple] = {
 def port_kernel(value: str) -> str:
     """A clause ``kernel`` value in the port's names."""
     return KERNEL_FROM_REFERENCE.get(value, value)
-
-
-def require_meshless(mesh, what: str = "mesh"):
-    if mesh is not None:
-        raise NotImplementedError(f"{what}={mesh!r}: {MESH_PENDING}")
 
 
 @dataclass(frozen=True)
@@ -94,11 +86,27 @@ class Combination:
 
 
 def mapping_key(cfg, mesh, combo: Combination, seg) -> str:
-    """Physical content of (provider, flags) for one segment.  Without a
-    mesh every mapping is a no-op, so all providers collapse to one key,
-    ``"local"``; the port takes no mesh yet."""
-    require_meshless(mesh)
-    return "local"
+    """Physical content of (provider, flags) for one segment: the resolved
+    logical->mesh mapping.  Two combinations whose providers resolve to the
+    same mapping build the same program.  Without a mesh every mapping is
+    a no-op, so all providers collapse to one key, ``"local"``.
+
+    ``mesh`` may be a live ``DeviceMesh`` or a :class:`MeshSpec`: the
+    resolution needs only axis names and sizes, so a swept point is keyed
+    without materializing anything.  The key is the reference's.
+    """
+    from repro_torch.core.meshspec import MeshSpec
+    if mesh is None or (isinstance(mesh, MeshSpec) and mesh.is_local):
+        return "local"
+    from repro_torch.runtime.sharding import mesh_axis_sizes
+    axis_sizes = mesh_axis_sizes(mesh)
+    from repro_torch.core.providers import get_provider
+    m = get_provider(combo.provider).mapping(cfg, axis_sizes, combo.flags,
+                                             seg)
+    blob = json.dumps({"axes": axis_sizes,
+                       "map": {k: m[k] for k in sorted(m)}},
+                      sort_keys=True, default=str)
+    return hashlib.sha1(blob.encode()).hexdigest()[:16]
 
 
 #: effective-cid format version (the reference's, so keys agree)
@@ -149,12 +157,17 @@ class GlobalKnobs:
 
 def row_cid(combo: Combination, knobs: Optional[GlobalKnobs] = None,
             mesh=None) -> str:
-    """DB row id of one (combination, knob point) registration: the bare
-    combination cid at the default knob point, else qualified by the
-    knob content id.  ``mesh`` takes only ``None``."""
-    require_meshless(mesh)
-    return combo.cid if knobs is None or knobs == GlobalKnobs() \
+    """DB row id of one (combination, knob point, mesh point)
+    registration: the bare combination cid at the default knob point,
+    else qualified by the knob content id; a swept mesh point (a
+    :class:`MeshSpec`, ``None`` when the mesh is not swept) qualifies it
+    with ``#`` and its ``mid``, the local point included, as the
+    reference's."""
+    rid = combo.cid if knobs is None or knobs == GlobalKnobs() \
         else f"{combo.cid}@{knobs.kid}"
+    if mesh is not None:
+        rid = f"{rid}#{mesh.mid}"
+    return rid
 
 
 def swept_knob_fields(space: Optional[Dict[str, Tuple]]) -> Tuple[str, ...]:
@@ -234,8 +247,8 @@ class SweepSpec:
     * ``globals`` — the GlobalKnobs grid (``global_space``)
     * ``kernel_space`` — the inner kernel-schedule grid (JSON key
       ``"kernels"``); ``None`` = no inner sweep
-    * ``meshes`` — the reference's topology axis; the port takes only
-      ``None`` (ROADMAP Queue 1 item 4)
+    * ``meshes`` — the topology axis (``mesh_space``, a tuple of
+      :class:`MeshSpec`); ``None`` = the mesh is not swept
 
     :meth:`from_json` pins unlisted clause/global fields to their
     default's first value and maps the reference's kernel names.
@@ -247,9 +260,6 @@ class SweepSpec:
     meshes: Optional[Tuple] = None
     kernel_space: Optional[Dict[str, Tuple]] = None
 
-    def __post_init__(self):
-        require_meshless(self.meshes, "meshes")
-
     @classmethod
     def from_json(cls, spec: Dict) -> "SweepSpec":
         providers = tuple(spec.get("providers", {}))
@@ -260,7 +270,9 @@ class SweepSpec:
         gl = {k: tuple(v) for k, v in spec.get("globals", {}).items()}
         for k, v in DEFAULT_GLOBAL_SPACE.items():
             gl.setdefault(k, (v[0],))
-        meshes = tuple(spec["meshes"]) if "meshes" in spec else None
+        from repro_torch.core.meshspec import as_mesh_point
+        meshes = tuple(as_mesh_point(m) for m in spec["meshes"]) \
+            if "meshes" in spec else None
         kernels = port_space({k: tuple(v)
                               for k, v in spec["kernels"].items()}) \
             if "kernels" in spec else None
@@ -272,6 +284,8 @@ class SweepSpec:
             out["clauses"] = {k: list(v) for k, v in self.clauses.items()}
         if self.globals is not None:
             out["globals"] = {k: list(v) for k, v in self.globals.items()}
+        if self.meshes is not None:
+            out["meshes"] = [m.to_json() for m in self.meshes]
         if self.kernel_space is not None:
             out["kernels"] = {k: list(v)
                               for k, v in self.kernel_space.items()}
@@ -284,7 +298,12 @@ def load_sweep_json(path: str) -> SweepSpec:
         {"providers": {"tensor_par": ["shard_vocab"], "fsdp": []},
          "clauses":   {"remat": ["none","dots"], "kernel": ["xla"]},
          "globals":   {"microbatches": [1,2]},
+         "meshes":    [null, {"data": 2, "model": 2}],
          "kernels":   {"kernel": ["xla","pallas"], "block_k": [512, 1024]}}
+
+    ``meshes`` is the topology axis (``sweep(mesh_space=...)``): ``null``
+    is the local point, an object the ``{"axis": size}`` shorthand or the
+    MeshSpec wire form; absent = the mesh is not swept.
 
     ``kernels`` is the inner kernel-schedule grid
     (``sweep(kernel_space=...)``); absent = no inner sweep.  Returns a :class:`SweepSpec` for ``sweep(spec=...)``.

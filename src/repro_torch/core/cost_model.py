@@ -18,7 +18,6 @@ from dataclasses import dataclass, field
 from typing import Dict
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
-from repro_torch.core.combinator import require_meshless
 
 
 @dataclass(frozen=True)
@@ -26,8 +25,8 @@ class Hardware:
     name: str = "h100-sxm"
     peak_flops: float = 989e12          # dense bf16 tensor-core FLOP/s
     hbm_bw: float = 3.35e12             # HBM3 bytes/s
-    #: NVLink bytes/s per direction and inter-node bytes/s: unused while
-    #: the port is meshless (every collective term is 0)
+    #: NVLink bytes/s per direction (the collective floor and the fusion
+    #: boundary costs) and inter-node bytes/s
     link_bw: float = 450e9
     hbm_bytes: float = 80e9             # HBM capacity
     dcn_bw: float = 50e9
@@ -223,14 +222,34 @@ def segment_weight_elems(cfg: ArchConfig, segment) -> float:
     return per_super * segment.repeats
 
 
+def _batch_shard_degree(cfg: ArchConfig, shape: ShapeConfig, segment,
+                        combo, mesh_axes) -> int:
+    """How many ways this combination's provider shards the batch axis
+    under ``mesh_axes`` (mesh axis name -> size), by the same resolution
+    as the rules (the reference's); 1 when unresolvable."""
+    try:
+        from repro_torch.core.providers import get_provider
+        from repro_torch.runtime.sharding import Rules
+        mapping = get_provider(combo.provider).mapping(
+            cfg, dict(mesh_axes), combo.flags, segment)
+        rules = Rules(mapping, None)
+        rules.axis_sizes = dict(mesh_axes)
+        axes = rules._resolve_one("batch", shape.global_batch, set())
+    except Exception:
+        return 1
+    g = 1
+    for a in axes or ():
+        g *= int(mesh_axes[a])
+    return g
+
+
 def combo_lower_bound(cfg: ArchConfig, shape: ShapeConfig, segment,
                       combo, n_chips: int = 1, hw: Hardware = H100,
                       knobs=None, mesh_axes=None,
                       kernel_flops: float = 0.0) -> float:
     """Certified roofline lower bound (seconds) on scoring
-    (segment, combination) under one GlobalKnobs point, the reference's
-    with the collective floor left out (the port is meshless, so
-    ``mesh_axes`` takes only ``None``).
+    (segment, combination) under one GlobalKnobs point and one mesh, the
+    reference's.
 
     * **compute**: guaranteed dot FLOPs (projections and dense FFN) times
       the remat fwd+bwd multiple, plus ``kernel_flops`` once, over peak
@@ -239,10 +258,15 @@ def combo_lower_bound(cfg: ArchConfig, shape: ShapeConfig, segment,
       re-read count (times ``knobs.microbatches`` on train shapes), over
       HBM bandwidth.
 
+    * **collective** (train, stack/head segments, ``mesh_axes`` given):
+      if the provider shards the batch axis ``g`` ways, gradients are
+      combined across those replicas, at least a ring pass of ``(g-1)/g
+      * min(weight bytes, residual-activation bytes)`` over ``n_chips``
+      links.
+
     The bound divides by the same ``hw`` the dry-run scorer divides by,
     so ``bound <= score`` holds whatever the constants.
     """
-    require_meshless(mesh_axes, "mesh_axes")
     fwd = segment_forward_flops(cfg, shape, segment)
     if shape.kind != "train":
         mult = 1.0
@@ -265,7 +289,18 @@ def combo_lower_bound(cfg: ArchConfig, shape: ShapeConfig, segment,
         else:
             reads = 1.0
         memory_s = welems * itemsize * reads / (n_chips * hw.hbm_bw)
-    return max(compute_s, memory_s)
+
+    collective_s = 0.0
+    if (shape.kind == "train" and segment.kind in ("stack", "head")
+            and mesh_axes and n_chips > 1 and welems):
+        g = _batch_shard_degree(cfg, shape, segment, combo, mesh_axes)
+        if g > 1:
+            act_bytes = (shape.global_batch * shape.seq_len
+                         * cfg.d_model * itemsize)
+            w_bytes = welems * itemsize
+            collective_s = ((g - 1) / g * min(w_bytes, act_bytes)
+                            / (n_chips * hw.link_bw))
+    return max(compute_s, memory_s, collective_s)
 
 
 # --- analytic MODEL_FLOPS (the "useful compute" yardstick) -------------------

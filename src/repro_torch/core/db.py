@@ -2,8 +2,9 @@
 operational modes — **New**, **Overwrite**, **Continue** — as the
 reference's ``src/repro/core/db.py``, with its schema unchanged.
 
-The port is meshless: a row's ``mesh`` stays its JSON dict (``None``
-here), and the score cache's mesh column reads ``"local"``.  The
+A row swept over the mesh axis records its
+:class:`~repro_torch.core.meshspec.MeshSpec` in its spec, and the score
+cache's mesh column holds the point's ``mid`` (``"local"`` meshless).  The
 ``machine_*``, ``kernel_*`` and ``plan_*`` tables are plain table access;
 their users are ``core/machine.py`` (the calibrated machine profile),
 ``kernels/autotune.py`` (the kernel schedules' timings) and
@@ -21,6 +22,7 @@ import time
 from typing import Dict, Iterable, List, Optional, Tuple
 
 from repro_torch.core.combinator import Combination, GlobalKnobs, row_cid
+from repro_torch.core.meshspec import MeshSpec
 
 _SCHEMA = """
 CREATE TABLE IF NOT EXISTS projects (
@@ -148,9 +150,10 @@ class SweepDB:
 
         Items are ``(segment, combo)`` 2-tuples, ``(segment, combo,
         knobs)`` 3-tuples — the knob axis — or ``(segment, combo, knobs,
-        mesh)`` 4-tuples, ``mesh`` ``None`` (the port is meshless).  The
-        row id is ``combinator.row_cid(combo, knobs, mesh)`` and the spec
-        records the knob point for per-point fusion grouping.
+        mesh)`` 4-tuples, ``mesh`` the swept MeshSpec point (``None`` =
+        the mesh is not swept).  The row id is
+        ``combinator.row_cid(combo, knobs, mesh)`` and the spec records
+        the knob and mesh points for per-point fusion grouping.
         """
         now = time.time()
         rows = []
@@ -161,6 +164,8 @@ class SweepDB:
             spec = c.to_json()
             if kn is not None:
                 spec["knobs"] = kn.to_json()
+            if mesh is not None:
+                spec["mesh"] = mesh.to_json()
             rows.append((project, seg, row_cid(c, kn, mesh),
                          json.dumps(spec), now))
         self.conn.executemany(
@@ -389,7 +394,8 @@ class SweepDB:
                         "combo": Combination.from_json(sd),
                         "knobs": GlobalKnobs.from_json(sd["knobs"])
                         if sd.get("knobs") else None,
-                        "mesh": sd.get("mesh"),
+                        "mesh": MeshSpec.from_json(sd["mesh"])
+                        if sd.get("mesh") else None,
                         "status": status,
                         "cost": json.loads(cost) if cost else None,
                         "error": error})

@@ -33,8 +33,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves as pytree_leaves
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
-from repro_torch.core.combinator import (Combination, GlobalKnobs,
-                                         require_meshless)
+from repro_torch.core.combinator import Combination, GlobalKnobs
 from repro_torch.core.cost_model import (H100, CostTerms, Hardware,
                                          combo_lower_bound,
                                          terms_from_analysis)
@@ -101,6 +100,9 @@ def _failure(e: BaseException) -> CombinationFailed:
 
 # --- the dry run's op accounting ------------------------------------------------
 
+#: the namespaces of ``torch.distributed``'s collective operators
+_COLLECTIVES = {"_c10d_functional", "c10d", "c10d_functional"}
+
 #: ops that move no data: factories that leave memory unwritten
 _NO_DATA = {"empty", "empty_like", "empty_strided", "new_empty",
             "new_empty_strided", "lift_fresh"}
@@ -141,6 +143,7 @@ class OpCounter(TorchDispatchMode):
         self._flops = FlopCounterMode(display=False)
         self.extra_flops = 0.0
         self.bytes = 0
+        self.coll_bytes = 0
 
     def __enter__(self):
         self._flops.__enter__()
@@ -168,26 +171,49 @@ class OpCounter(TorchDispatchMode):
         if name.startswith("_scaled_dot_product") and \
                 func.overloadpacket not in flop_registry:
             self.extra_flops += _sdpa_flops(func, args)
-        if not (func.namespace == "prim" or getattr(func, "is_view", False)
-                or name in _NO_DATA):
+        if func.namespace in _COLLECTIVES:
+            # a collective's output crosses the links: collective bytes
+            self.coll_bytes += sum(
+                _touched_bytes(t) for t in pytree_leaves(out)
+                if isinstance(t, torch.Tensor))
+        elif not (func.namespace == "prim" or getattr(func, "is_view", False)
+                  or name in _NO_DATA):
             self.bytes += sum(
                 _touched_bytes(t) for t in pytree_leaves((args, kwargs, out))
                 if isinstance(t, torch.Tensor))
         return out
 
 
+def _job_mesh(executor, mesh):
+    """The mesh a job builds under: its own point (a ``DeviceMesh``, or a
+    ``MeshSpec`` materialized here) or the executor's fixed one."""
+    from repro_torch.core.meshspec import live_mesh
+    return executor.mesh if mesh is None else live_mesh(mesh)
+
+
 class DryRunExecutor:
     """Analytic scoring: flops and bytes of the segment's program on fake
-    tensors (no device memory), over ``hw``'s peak rates."""
+    tensors (no device memory), over ``hw``'s peak rates.
+
+    Under a mesh the program runs on DTensors over fake tensors, so the
+    counter sees each rank's local operators: the counts are one
+    device's, and a collective's output bytes are its collective bytes.
+    A mesh needs its process group (``MeshSpec.to_mesh``), as the
+    reference's dry run needs its devices."""
 
     #: analytic scoring: concurrent workers don't perturb each other
     parallel_safe = True
-    n_chips = 1
 
     def __init__(self, hw: Hardware = H100,
-                 timeout_s: Optional[float] = 300):
+                 timeout_s: Optional[float] = 300, mesh=None):
         self.hw = hw
         self.timeout_s = timeout_s
+        self.mesh = mesh
+
+    @property
+    def n_chips(self) -> int:
+        from repro_torch.launch.mesh import mesh_chips
+        return mesh_chips(self.mesh)
 
     @property
     def cache_tag(self) -> str:
@@ -197,12 +223,15 @@ class DryRunExecutor:
 
     def count(self, cfg: ArchConfig, shape: ShapeConfig, seg: Segment,
               combo: Combination,
-              knobs: Optional[GlobalKnobs] = None) -> OpCounter:
+              knobs: Optional[GlobalKnobs] = None,
+              mesh=None) -> OpCounter:
         """Run the segment's program on fake tensors under an OpCounter."""
         from torch._subclasses.fake_tensor import FakeTensorMode
+        mesh = _job_mesh(self, mesh)
         with FakeTensorMode(allow_non_fake_inputs=True):
-            fn, args = segment_program(cfg, shape, seg, combo, device="cpu",
-                                       knobs=knobs)
+            fn, args = segment_program(
+                cfg, shape, seg, combo, knobs=knobs, mesh=mesh,
+                device=mesh.device_type if mesh is not None else "cpu")
             with OpCounter() as counter:
                 fn(*args)
         return counter
@@ -211,17 +240,17 @@ class DryRunExecutor:
                       seg: Segment, combo: Combination,
                       knobs: Optional[GlobalKnobs] = None,
                       mesh=None) -> CostTerms:
-        require_meshless(mesh)
         err = None
         try:
             with deadline(self.timeout_s):
-                counter = self.count(cfg, shape, seg, combo, knobs)
+                counter = self.count(cfg, shape, seg, combo, knobs, mesh)
         except Exception as e:      # the program fails = invalid combination
             err = _failure(e)
         if err is not None:
             raise err
-        return terms_from_analysis(counter.flops, counter.bytes, 0.0, 1,
-                                   self.hw)
+        # the counts are one device's: no division by the chip count
+        return terms_from_analysis(counter.flops, counter.bytes,
+                                   counter.coll_bytes, 1, self.hw)
 
 
 class WallClockExecutor:
@@ -236,13 +265,18 @@ class WallClockExecutor:
 
     #: concurrent timed runs contend on the device and corrupt medians
     parallel_safe = False
-    n_chips = 1
 
     def __init__(self, device="cuda", repeats: int = 5,
-                 timeout_s: Optional[float] = 120):
+                 timeout_s: Optional[float] = 120, mesh=None):
         self.device = resolve_device(device)
         self.repeats = repeats
         self.timeout_s = timeout_s
+        self.mesh = mesh
+
+    @property
+    def n_chips(self) -> int:
+        from repro_torch.launch.mesh import mesh_chips
+        return mesh_chips(self.mesh)
 
     @property
     def cache_tag(self) -> str:
@@ -252,10 +286,11 @@ class WallClockExecutor:
             if self.device.type == "cuda" else platform.machine()
         return f"wallclock:r{self.repeats}:{self.device.type}:{name}"
 
-    def _measure(self, cfg, shape, seg, combo, knobs):
+    def _measure(self, cfg, shape, seg, combo, knobs, mesh):
         cuda = self.device.type == "cuda"
         fn, args = segment_program(cfg, shape, seg, combo,
-                                   device=self.device, knobs=knobs)
+                                   device=self.device, knobs=knobs,
+                                   mesh=mesh)
         out = fn(*args)                             # warm-up
         if cuda:
             torch.cuda.synchronize(self.device)
@@ -283,7 +318,7 @@ class WallClockExecutor:
                       seg: Segment, combo: Combination,
                       knobs: Optional[GlobalKnobs] = None,
                       mesh=None) -> CostTerms:
-        require_meshless(mesh)
+        mesh = _job_mesh(self, mesh)
         cuda = self.device.type == "cuda"
         if cuda:
             torch.cuda.synchronize(self.device)
@@ -291,7 +326,7 @@ class WallClockExecutor:
         err = None
         try:
             with deadline(self.timeout_s):
-                times = self._measure(cfg, shape, seg, combo, knobs)
+                times = self._measure(cfg, shape, seg, combo, knobs, mesh)
         except Exception as e:
             err = _failure(e)
         # the job's tensors die with _measure's frame (the failure keeps
@@ -417,9 +452,21 @@ class ParallelSweepRunner:
             return JobResult(job, "pruned",
                              error=f"lower bound {job.bound_s:.3e}s > "
                                    f"incumbent best")
+        kw = {}
+        if job.mesh is not None:
+            # a swept point: materialize it here (memoized per process) and
+            # build under it instead of the executor's own mesh
+            from repro_torch.core.meshspec import (MeshUnsatisfiable,
+                                                   cached_mesh)
+            try:
+                kw["mesh"] = cached_mesh(job.mesh)
+            except MeshUnsatisfiable as e:
+                # environment-dependent, not a verdict on the combination
+                return JobResult(job, "failed", error=str(e), transient=True)
         try:
             cost = self.executor.score_segment(
-                self.cfg, self.shape, job.seg, job.combo, knobs=job.knobs)
+                self.cfg, self.shape, job.seg, job.combo, knobs=job.knobs,
+                **kw)
         except CombinationFailed as e:
             return JobResult(job, "failed", error=str(e),
                              transient=getattr(e, "transient", False))

@@ -6,9 +6,12 @@ combinations — ComPar's guarantee holds (the fused plan is never worse
 than the best single-provider plan, in the scored metric).
 
 ``boundary_costs=True`` charges layout transitions between adjacent
-segments and solves the chain by Viterbi DP.  Meshless, every boundary
-costs 0, so the Viterbi and the argmin choose the same plan; the Viterbi
-is kept for the multi-device slice (ROADMAP Queue 1 item 4).
+segments on a mesh (a resharding of the residual stream over the link)
+and solves the chain by Viterbi DP.  Meshless, every boundary costs 0.
+The boundary is priced from the mesh's axis sizes alone, so a swept
+:class:`~repro_torch.core.meshspec.MeshSpec` point is priced without
+materializing it (the reference builds the mesh first, which a process
+with fewer ranks cannot).
 
 Knob axis (``fuse_joint``): GlobalKnobs are program-wide, so the joint
 ``(segment, combination, knobs)`` argmin decomposes into one inner solve
@@ -21,31 +24,65 @@ import math
 from typing import Dict, List, Optional, Tuple
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
-from repro_torch.core.combinator import (Combination, GlobalKnobs,
-                                         require_meshless)
+from repro_torch.core.combinator import Combination, GlobalKnobs
 from repro_torch.core.cost_model import H100, CostTerms, Hardware
 from repro_torch.core.plan import Plan
+from repro_torch.core.providers import get_provider
+from repro_torch.models.params import DTYPES
+from repro_torch.runtime.sharding import Rules, mesh_axis_sizes
 from repro_torch.core.segment import Segment, fragment
 
 log = logging.getLogger("repro_torch.fusion")
+
+
+def _residual_pspec(cfg: ArchConfig, shape: ShapeConfig, mesh,
+                    combo: Combination, seg: Segment):
+    mapping = get_provider(combo.provider).mapping(
+        cfg, mesh_axis_sizes(mesh), combo.flags, seg)
+    rules = Rules(mapping, mesh)
+    if shape.kind == "decode":
+        return rules.pspec(("batch", "embed"),
+                           (shape.global_batch, cfg.d_model))
+    return rules.pspec(("batch", "seq", "embed"),
+                       (shape.global_batch, shape.seq_len, cfg.d_model))
+
+
+def _residual_bytes(cfg: ArchConfig, shape: ShapeConfig) -> int:
+    elems = shape.global_batch * cfg.d_model
+    if shape.kind != "decode":
+        elems *= shape.seq_len
+    return elems * DTYPES[cfg.dtype].itemsize
+
+
+def _chips(mesh) -> int:
+    n = 1
+    for size in mesh_axis_sizes(mesh).values():
+        n *= size
+    return n
 
 
 def boundary_cost_s(cfg: ArchConfig, shape: ShapeConfig, mesh,
                     a: Combination, sa: Segment,
                     b: Combination, sb: Segment,
                     hw: Hardware = H100) -> float:
-    """Resharding cost of the residual stream between two segments: 0
-    without a mesh (the port takes no mesh yet)."""
-    require_meshless(mesh)
-    return 0.0
+    """Resharding cost of the residual stream between two segments."""
+    if mesh is None or not mesh_axis_sizes(mesh):
+        return 0.0
+    pa = _residual_pspec(cfg, shape, mesh, a, sa)
+    pb = _residual_pspec(cfg, shape, mesh, b, sb)
+    if pa == pb:
+        return 0.0
+    return _residual_bytes(cfg, shape) / (_chips(mesh) * hw.link_bw)
 
 
 def max_boundary_cost_s(cfg: ArchConfig, shape: ShapeConfig,
                         n_chips: int, hw: Hardware = H100) -> float:
-    """Upper bound on ONE boundary's resharding cost: 0 on one chip."""
-    if n_chips > 1:
-        require_meshless(f"{n_chips} chips", "n_chips")
-    return 0.0
+    """Upper bound on ONE boundary's resharding cost under any pair of
+    combinations, the per-boundary unit of ``JobSpec.slack_s``: the
+    constant :func:`boundary_cost_s` charges (0 on one chip)."""
+    if n_chips <= 1:
+        return 0.0
+    return _residual_bytes(cfg, shape) / (n_chips * hw.link_bw)
 
 
 def fuse(cfg: ArchConfig, shape: ShapeConfig, mesh,
@@ -57,7 +94,6 @@ def fuse(cfg: ArchConfig, shape: ShapeConfig, mesh,
     Returns the fused plan; per-segment predicted costs land in
     ``plan.meta``.
     """
-    require_meshless(mesh)
     segs = fragment(cfg)
     for s in segs:
         if not results.get(s.name):
@@ -124,10 +160,46 @@ def fuse_joint(cfg: ArchConfig, shape: ShapeConfig, mesh,
     outer argmin of the predicted totals; ties break to the earliest
     point in ``knob_points`` order.  A knob point missing a valid
     combination for some segment is skipped; if every point is unfusable
-    the error lists each point's failure.  ``mesh_points`` takes only
-    ``None`` (ROADMAP Queue 1 item 4).
+    the error lists each point's failure.
+
+    With ``mesh_points`` (a list of
+    :class:`~repro_torch.core.meshspec.MeshSpec`) the mesh is the
+    outermost axis: ``per_knob`` is keyed ``mesh mid -> knob kid ->
+    segment -> rows``, ``mesh`` is ignored, and each point's inner solve
+    prices its boundaries on that point's axes.  The plan's ``mesh`` is
+    the chosen point; ties break to the earliest point in ``mesh_points``
+    order.
     """
-    require_meshless(mesh_points, "mesh_points")
+    if mesh_points is not None:
+        best: Optional[Plan] = None
+        mesh_totals: Dict[str, float] = {}
+        failures = []
+        for mp in mesh_points:
+            table = per_knob.get(mp.mid) or {}
+            try:
+                plan = fuse_joint(cfg, shape, None if mp.is_local else mp,
+                                  table, knob_points,
+                                  boundary_costs=boundary_costs, hw=hw)
+            except ValueError as e:
+                failures.append(f"[{mp.key()}] {e}")
+                continue
+            plan.mesh = mp
+            mesh_totals[mp.key()] = plan.meta["predicted_total_s"]
+            if best is None or (plan.meta["predicted_total_s"]
+                                < best.meta["predicted_total_s"]):
+                best = plan
+        if best is None:
+            raise ValueError("no mesh point is fusable: "
+                             + "; ".join(failures))
+        if failures:
+            log.warning("mesh argmin skipped %d point(s): %s",
+                        len(failures), "; ".join(failures))
+            best.meta["mesh_failures"] = list(failures)
+        if len(mesh_points) > 1:
+            best.meta["fusion"] += "+mesh-argmin"
+        best.meta["mesh_points"] = len(mesh_points)
+        best.meta["per_mesh_total_s"] = mesh_totals
+        return best
     best = None
     totals: Dict[str, float] = {}
     failures = []

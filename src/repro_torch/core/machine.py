@@ -43,9 +43,11 @@ Soundness, as the reference's: the lower bound and the dry-run score
 divide by the same executor ``hw``, so ``bound <= score`` holds under any
 profile.
 
-The port is meshless: collective probes need a process group (ROADMAP
-Queue 1 item 4), so ``collectives`` stays empty and ``link_bw`` keeps its
-constant, as the reference's is for a single device.
+Collective probes run over the default process group's ranks, a flat
+ring, as the reference's run over all local devices: ``all_reduce`` and
+``all_gather_into_tensor``, every rank calling ``calibrate``.  Without a
+group, or at world size 1, there are none (the reference has none on one
+device), and ``link_bw`` keeps its constant.
 
 CLI: ``python -m repro_torch.core.machine [--db PATH] [--tiny] [--force]
 [--device cpu]``.
@@ -77,6 +79,9 @@ _MATMUL_SIZES_TINY = (128, 256)
 #: stream probe array bytes (read once, written once)
 _STREAM_BYTES = 1 << 30          # 1 GiB, 20x the H100's L2
 _STREAM_BYTES_TINY = 1 << 22     # 4 MiB
+#: bytes per rank of a collective probe (the reference's sizes)
+_COLL_BYTES = 1 << 22
+_COLL_BYTES_TINY = 1 << 18
 #: launches between two CUDA events (one timed window)
 _INNER = 8
 _DTYPES = ("bfloat16", "float32")
@@ -94,7 +99,7 @@ class MachineProfile:
     ``peak_flops`` maps dtype name -> achieved FLOP/s per device;
     ``hbm_bw`` is achieved stream bytes/s per device; ``collectives``
     maps ``"<kind>:<axis>=<size>:<shard_bytes>"`` -> {"s", "bytes",
-    "bytes_s"} (empty: the port is meshless).
+    "bytes_s"} (empty below two ranks in the default group).
     """
     platform: str
     device_kind: str
@@ -201,16 +206,35 @@ def _stream_bw(nbytes: int, repeats: int, dev) -> float:
     return 2.0 * x.nbytes / t if t > 0 else 0.0
 
 
-def _collective_points(n_devices: int) -> Dict[str, Dict[str, float]]:
-    """Collective probes: none for one device, as the reference's; for
-    more, the probes need a process group, which comes with meshes
-    (ROADMAP Queue 1 item 4), so none yet and ``link_bw`` keeps its
-    constant."""
-    if n_devices >= 2:
-        log.info("collective probes over %d devices come with meshes "
-                 "(ROADMAP Queue 1 item 4): link_bw keeps its constant",
-                 n_devices)
-    return {}
+def _collective_points(shard_bytes: int, repeats: int,
+                       dev) -> Dict[str, Dict[str, float]]:
+    """All-reduce / all-gather over the default group's flat ring (every
+    rank calls this), keyed and counted as the reference's: all-reduce
+    moves ``2*r*(n-1)/n`` bytes per device, all-gather ``r*(n-1)/n``, so
+    ``bytes_s`` is in ``Hardware.link_bw``'s units.  None below two
+    ranks."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import world_size
+    n = world_size() or 1
+    out: Dict[str, Dict[str, float]] = {}
+    if n < 2:
+        return out
+    rows = max(1, shard_bytes // 4)
+    r = rows * 4                                     # shard bytes per rank
+    x = torch.ones((rows,), dtype=torch.float32, device=dev)
+    gathered = torch.empty((rows * n,), dtype=torch.float32, device=dev)
+    probes = {
+        "all_reduce": (lambda: dist.all_reduce(x),
+                       2.0 * r * (n - 1) / n),
+        "all_gather": (lambda: dist.all_gather_into_tensor(gathered, x),
+                       1.0 * r * (n - 1) / n),
+    }
+    for kind, (body, conv_bytes) in probes.items():
+        t = _time_best(body, dev, repeats)
+        if t > 0:
+            out[f"{kind}:data={n}:{r}"] = {
+                "s": t, "bytes": conv_bytes, "bytes_s": conv_bytes / t}
+    return out
 
 
 def calibrate(tiny: bool = False, repeats: int = 3,
@@ -230,7 +254,8 @@ def calibrate(tiny: bool = False, repeats: int = 3,
         torch.set_float32_matmul_precision(precision)
     peaks = {k: v for k, v in peaks.items() if v > 0}
     bw = _stream_bw(stream, repeats, dev)
-    coll = _collective_points(n)
+    coll = _collective_points(_COLL_BYTES_TINY if tiny else _COLL_BYTES,
+                              repeats, dev)
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     prof = MachineProfile(

@@ -3,10 +3,10 @@
 Each provider turns (arch config, mesh axis sizes, flag subset, segment)
 into a logical->physical sharding mapping, a plain dict.  The flags,
 ``applicable`` and ``mapping`` are the reference's
-(``src/repro/core/providers/``).  The port is meshless so far: a mapping
-only feeds ``combinator.mapping_key``, which is ``"local"`` without a
-mesh, so every provider builds the same program on a segment.  Applying a
-mapping to a device mesh comes with ROADMAP Queue 1 item 4.
+(``src/repro/core/providers/``).  ``core.plan.build_contexts`` turns a
+mapping into the segment's ``runtime.sharding.Rules`` on the mesh;
+without a mesh it resolves nothing, and ``combinator.mapping_key`` is
+``"local"``, so every provider builds the same program on a segment.
 """
 from __future__ import annotations
 

@@ -7,7 +7,10 @@ clause: :func:`segment_program` returns a callable and its concrete
 arguments on a device.  Train shapes measure forward and backward (the
 gradients of one scalar), and with ``knobs.microbatches > 1`` accumulate
 them over batch slices, as the reference's ``_with_bwd`` and
-``_with_microbatches`` do.  Without a mesh the provider's mapping changes
+``_with_microbatches`` do.  Under a mesh (a ``DeviceMesh``) the
+segment's params (:func:`_pshard`), its activations and its caches are
+DTensors laid out by the provider's rules, and the program runs as the
+step factories run it; without one the provider's mapping changes
 nothing, so the clause is all of the combination that reaches the program.
 """
 from __future__ import annotations
@@ -18,6 +21,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core.combinator import Combination, GlobalKnobs
+from repro_torch.core.plan import dp_shards
+from repro_torch.core.providers import get_provider
 from repro_torch.core.segment import Segment
 from repro_torch.device import resolve_device
 from repro_torch.models.blocks import block_decode
@@ -26,7 +31,10 @@ from repro_torch.models.loss import softmax_xent
 from repro_torch.models.model import (SEG_EMBED, SEG_HEAD, _layers,
                                       _run_group, _write_state, cache_specs,
                                       embed_tokens, lm_head, model_specs)
-from repro_torch.models.params import tree_leaves, tree_map
+from repro_torch.models.params import param_pspecs, tree_leaves, tree_map
+from repro_torch.runtime.sharding import (Rules, Sharding, distribute,
+                                          mesh_axis_sizes, mesh_scope,
+                                          placements)
 
 #: the reference's ``_materialize`` draws its arguments from one key: 42
 SEED = 42
@@ -49,6 +57,22 @@ def _materializer(dev: torch.device, seed: int):
 def _unflatten(tree, leaves):
     it = iter(leaves)
     return tree_map(lambda _: next(it), tree)
+
+
+def _pshard(spec_tree, rules: Rules, mesh):
+    """The placements of a segment's params under ``rules`` (None without
+    a mesh), as the reference's ``_pshard`` gives NamedShardings."""
+    if mesh is None:
+        return None
+    return tree_map(lambda s, ps: Sharding(mesh, placements(
+        mesh, ps, shape=s.shape)), spec_tree, param_pspecs(spec_tree, rules))
+
+
+def _in_scope(fn, meshed: bool):
+    def wrapped(*args):
+        with mesh_scope(meshed):
+            return fn(*args)
+    return wrapped
 
 
 def _with_bwd(fn, argnums=(0,), scalar: bool = False):
@@ -87,7 +111,7 @@ def _with_microbatches(fn, mb: int):
 def segment_program(cfg: ArchConfig, shape: ShapeConfig, seg: Segment,
                     combo: Combination, *, device,
                     knobs: Optional[GlobalKnobs] = None,
-                    params=None) -> Tuple[Callable, Tuple]:
+                    params=None, mesh=None) -> Tuple[Callable, Tuple]:
     """Build ``(fn, args)`` for one segment: ``fn(*args)`` runs the
     segment's compute under the combination's clause on ``device``.
 
@@ -102,11 +126,25 @@ def segment_program(cfg: ArchConfig, shape: ShapeConfig, seg: Segment,
     over ``knobs.microbatches`` batch slices.  The arguments come from a
     ``torch.Generator`` seeded :data:`SEED` (see :func:`_materializer`);
     ``params`` replaces the segment's parameter tree (the reference's
-    weights, carried through numpy, for instance).
+    weights, carried through numpy, for instance).  Under ``mesh`` the
+    arguments are drawn in full and placed (each rank its shard).
     """
     dev = resolve_device(device)
+    fn, args = _segment_program(cfg, shape, seg, combo, dev, knobs, params,
+                                mesh)
+    return _in_scope(fn, mesh is not None), args
+
+
+def _segment_program(cfg, shape, seg, combo, dev, knobs, params, mesh):
     make = _materializer(dev, SEED)
-    ctx = ModelContext(clause=combo.clause)
+    mapping = get_provider(combo.provider).mapping(
+        cfg, mesh_axis_sizes(mesh), combo.flags, seg)
+    rules = Rules(mapping, mesh)
+    ctx = ModelContext(rules=rules, clause=combo.clause,
+                       moe_groups=dp_shards(mesh))
+
+    def place(t, axes):
+        return t if mesh is None else rules.distribute(t, axes)
     specs = model_specs(cfg)
     B, S = shape.global_batch, shape.seq_len
     train = shape.kind == "train"
@@ -126,9 +164,13 @@ def segment_program(cfg: ArchConfig, shape: ShapeConfig, seg: Segment,
         tree_map(lambda s: make(s.shape, s.tdtype), need)
     if train:
         p = tree_map(lambda t: t.detach().requires_grad_(), p)
+    sh = _pshard(need, rules, mesh)
+    if sh is not None:
+        p = tree_map(lambda t, s: distribute(t, s), p, sh)
 
     if seg.kind == "embed":
-        tokens = make((B,) if decode else (B, S), torch.long)
+        tokens = place(make((B,) if decode else (B, S), torch.long),
+                       ("batch",) if decode else ("batch", "seq"))
 
         def fn(p, tokens):
             return embed_tokens(p, tokens, cfg, ctx)
@@ -139,12 +181,13 @@ def segment_program(cfg: ArchConfig, shape: ShapeConfig, seg: Segment,
     x = make((B, cfg.d_model) if decode else (B, S, cfg.d_model), dt)
     if train:
         x.requires_grad_()
+    x = place(x, ("batch", "embed") if decode else ("batch", "seq", "embed"))
 
     if seg.kind == "head":
         def fn(p, x):
             logits = lm_head(p, x, cfg, ctx)
-            tgt = torch.zeros(logits.shape[:-1], dtype=torch.long,
-                              device=logits.device)
+            tgt = place(torch.zeros(logits.shape[:-1], dtype=torch.long,
+                                    device=dev), ("batch", "seq"))
             loss, _ = softmax_xent(logits, tgt)
             return loss
         if train:
@@ -155,8 +198,10 @@ def segment_program(cfg: ArchConfig, shape: ShapeConfig, seg: Segment,
     group = cfg.stack_plan()[int(seg.name[1:])]
 
     if decode:
+        from repro_torch.serve.step import cache_axes
         caches = tree_map(lambda s: make(s.shape, s.dtype),
                           cache_specs(cfg, B, S)[seg.name])
+        caches = tree_map(place, caches, cache_axes(cfg)[seg.name])
         dctx = ctx.with_(decode=True)
 
         @torch.no_grad()

@@ -24,9 +24,10 @@ Beside it, as in the reference: the kernel autotuner
 (``ComParTuner(machine=)``, ``core/machine.py``) and the plan registry
 (``ComParTuner(registry=)``, ``serve/registry.py``).
 
-The port is meshless, on one device.  What the reference sweeps beyond
-that raises, naming the ROADMAP item that brings it: ``mesh``/
-``mesh_space`` (Queue 1 item 4).
+A mesh (a ``DeviceMesh`` or a ``MeshSpec``) applies the providers' rules
+to every program, and ``mesh_space`` sweeps topology points as the
+reference's second outer axis; a point is materialized by whichever
+process scores it, against its own process group.
 """
 from __future__ import annotations
 
@@ -43,16 +44,19 @@ from repro_torch.core.combinator import (DEFAULT_CLAUSE_SPACE, Combination,
                                          GlobalKnobs, SweepSpec,
                                          enumerate_combinations, global_grid,
                                          paper_combination_count, port_space,
-                                         require_meshless, row_cid,
+                                         row_cid,
                                          swept_knob_fields)
 from repro_torch.core.cost_model import H100, CostTerms, combo_lower_bound
 from repro_torch.core.db import SweepDB
 from repro_torch.core.executor import DryRunExecutor, WallClockExecutor
 from repro_torch.core.fusion import best_uniform, fuse_joint
+from repro_torch.core.meshspec import (MeshSpec, as_mesh_point,
+                                       default_mesh_space, live_mesh)
 from repro_torch.core.plan import Plan
 from repro_torch.core.providers import all_providers, get_provider
 from repro_torch.core.segment import Segment, fragment
 from repro_torch.device import resolve_device
+from repro_torch.runtime.sharding import mesh_axis_sizes
 
 log = logging.getLogger("repro_torch.tuner")
 
@@ -73,6 +77,7 @@ class SweepReport:
     n_inapplicable: int = 0  # (segment, combination) pairs dropped because
                              # the provider is inapplicable to the segment
     n_knob_points: int = 1  # GlobalKnobs points swept (the RTL axis)
+    n_mesh_points: int = 1  # mesh/topology points swept (the mesh axis)
     paper_count: int = 0    # the paper's formula, an upper bound
     elapsed_s: float = 0.0
     #: degraded-mode accounting: a sweep that limped home must say so
@@ -92,6 +97,8 @@ class SweepReport:
         field(default_factory=dict)
     #: knobs.key() -> fused predicted total, every fusable knob point
     per_knob_total_s: Dict[str, float] = field(default_factory=dict)
+    #: mesh.key() -> fused predicted total, every fusable mesh point
+    per_mesh_total_s: Dict[str, float] = field(default_factory=dict)
     #: segment kind -> {"n", "mean", "max"} of bound/measured over done
     #: rows (a ratio > 1 means the certificate broke: audit_soundness)
     bound_tightness: Dict[str, Dict[str, float]] = field(default_factory=dict)
@@ -102,6 +109,7 @@ class SweepReport:
 
     def summary(self) -> str:
         s = (f"project={self.project} knob_points={self.n_knob_points} "
+             f"mesh_points={self.n_mesh_points} "
              f"done={self.n_done} failed={self.n_failed} "
              f"invalid={self.n_invalid} pruned={self.n_pruned} "
              f"scored={self.n_scored} cached={self.n_cached} "
@@ -203,8 +211,10 @@ class ComParTuner:
                  executor: str = "dryrun", validate: bool = False,
                  timeout_s: Optional[float] = 300, mesh=None,
                  machine=None, registry=None):
-        require_meshless(mesh)
         self.cfg = cfg
+        # a MeshSpec (or its dict shorthand) is taken wherever a live
+        # mesh is: materialized here, once, against this process's group
+        self.mesh = live_mesh(mesh)
         self.shape = shape
         self.device = resolve_device(device)
         self.db = db or SweepDB(":memory:")
@@ -216,13 +226,15 @@ class ComParTuner:
             if machine is not None:
                 from repro_torch.core.machine import resolve_machine
                 hw = resolve_machine(machine, self.db, device=self.device)
-            self.executor = DryRunExecutor(hw, timeout_s=timeout_s)
+            self.executor = DryRunExecutor(hw, timeout_s=timeout_s,
+                                           mesh=self.mesh)
         elif executor == "wallclock":
             if machine is not None:
                 log.warning("machine= ignored: wallclock scores are "
                             "measured, not modeled")
             self.executor = WallClockExecutor(self.device,
-                                              timeout_s=timeout_s)
+                                              timeout_s=timeout_s,
+                                              mesh=self.mesh)
         else:
             raise ValueError(f"executor={executor!r}; expected 'dryrun' or "
                              f"'wallclock'")
@@ -321,7 +333,12 @@ class ComParTuner:
         ``share_scores``  one program per structurally identical group
         ``record_batch``  DB rows per write transaction
 
-        ``mesh_space`` raises (ROADMAP Queue 1 item 4).
+        ``mesh_space``    topology points swept as a second outer axis: a
+                          list of ``MeshSpec`` | ``None`` (the local point)
+                          | ``{"data": 2}`` dicts, or ``"auto"``
+                          (``default_mesh_space()``).  Each point has its
+                          own rows; the plan's ``mesh`` is chosen by the
+                          joint argmin.  ``None`` = the mesh is not swept.
         """
         t0 = time.time()
         if isinstance(backend, BackendOptions):
@@ -366,8 +383,30 @@ class ComParTuner:
             providers = list(spec.providers) or None
             clause_space = spec.clauses
             global_space = spec.globals
+            mesh_space = list(spec.meshes) if spec.meshes is not None \
+                else None
             kernel_space = spec.kernel_space
-        require_meshless(mesh_space, "mesh_space")
+        if isinstance(mesh_space, str):
+            if mesh_space != "auto":
+                raise ValueError(f"mesh_space={mesh_space!r}: the only "
+                                 f"string value is 'auto'")
+            mesh_space = default_mesh_space()
+        mesh_swept = mesh_space is not None
+        mpoints: Optional[List[MeshSpec]] = None
+        if mesh_swept:
+            # normalize + dedupe by content: the same topology listed
+            # twice would register colliding rows
+            mpoints, seen = [], set()
+            for m in mesh_space:
+                mp = as_mesh_point(m)
+                if mp.mid not in seen:
+                    seen.add(mp.mid)
+                    mpoints.append(mp)
+            if not mpoints:
+                raise ValueError("mesh_space is empty")
+            if self.mesh is not None:
+                log.info("mesh_space sweeps its own points; the fixed "
+                         "constructor mesh is not implicitly included")
         if remote_url is not None:
             backend = "remote"
         if backend == "remote" and not remote_url:
@@ -418,6 +457,7 @@ class ComParTuner:
                                         budget=budget, max_flags=max_flags)
         rep = SweepReport(
             self.project, n_combinations=0, n_knob_points=len(points),
+            n_mesh_points=len(mpoints) if mesh_swept else 1,
             paper_count=paper_combination_count(
                 [len(get_provider(p).flags) for p in providers],
                 n_rtl=len(swept_knob_fields(global_space)),
@@ -440,12 +480,16 @@ class ComParTuner:
                     continue
                 kept.append(c)
             per_seg_combos[seg.name] = kept
-        reg = [(seg.name, c, kn) for kn in points for seg in segs
+        reg = [(seg.name, c, kn, mp)
+               for mp in (mpoints if mesh_swept else [None])
+               for kn in points for seg in segs
                for c in per_seg_combos[seg.name]]
         rep.n_combinations = len(reg)
         self.db.register_many(self.project, reg)
 
         self._execute(segs, per_seg_combos, points, rep, backend=backend,
+                      mesh_points=mpoints,
+                      boundary_slack=prune and boundary_costs,
                       kernel_tuning=tuning, static_checks=static_checks,
                       workers=workers, remote_url=remote_url,
                       remote_token=remote_token, fallback=fallback,
@@ -454,20 +498,23 @@ class ComParTuner:
                       prune_margin=prune_margin, use_cache=use_cache,
                       share_scores=share_scores, record_batch=record_batch)
 
-        # collect valid results per (knob point, segment)
+        # collect valid results per (mesh point, knob point, segment)
         by_rid = {(r["segment"], r["cid"]): r
                   for r in self.db.results(self.project)}
-        per_knob: Dict[str, Dict[str, List[Tuple[Combination,
-                                                 CostTerms]]]] = {}
-        for kn in points:
-            table = per_knob.setdefault(kn.kid, {})
-            for seg in segs:
-                good = table.setdefault(seg.name, [])
-                for c in per_seg_combos[seg.name]:
-                    r = by_rid.get((seg.name, row_cid(c, kn)))
-                    if r is not None and r["status"] == "done" \
-                            and r["cost"]:
-                        good.append((c, CostTerms.from_dict(r["cost"])))
+
+        def knob_table(mp):
+            per_knob: Dict[str, Dict[str, List[Tuple[Combination,
+                                                     CostTerms]]]] = {}
+            for kn in points:
+                table = per_knob.setdefault(kn.kid, {})
+                for seg in segs:
+                    good = table.setdefault(seg.name, [])
+                    for c in per_seg_combos[seg.name]:
+                        r = by_rid.get((seg.name, row_cid(c, kn, mp)))
+                        if r is not None and r["status"] == "done" \
+                                and r["cost"]:
+                            good.append((c, CostTerms.from_dict(r["cost"])))
+            return per_knob
 
         counts = self.db.done_count(self.project)
         rep.n_done = counts.get("done", 0)
@@ -480,17 +527,28 @@ class ComParTuner:
             log.warning("bound soundness violated on %d done row(s): %s",
                         len(violations), violations[:3])
 
-        plan = fuse_joint(self.cfg, self.shape, None, per_knob, points,
-                          boundary_costs=boundary_costs)
-        rep.per_segment = per_knob[plan.knobs.kid]
+        if mesh_swept:
+            per_mesh = {mp.mid: knob_table(mp) for mp in mpoints}
+            plan = fuse_joint(self.cfg, self.shape, None, per_mesh, points,
+                              boundary_costs=boundary_costs,
+                              mesh_points=mpoints)
+            rep.per_segment = per_mesh[plan.mesh.mid][plan.knobs.kid]
+            rep.per_mesh_total_s = dict(plan.meta["per_mesh_total_s"])
+        else:
+            per_knob = knob_table(None)
+            plan = fuse_joint(self.cfg, self.shape, self.mesh, per_knob,
+                              points, boundary_costs=boundary_costs)
+            rep.per_segment = per_knob[plan.knobs.kid]
         plan.meta["project"] = self.project
         rep.per_knob_total_s = dict(plan.meta["per_knob_total_s"])
         rep.elapsed_s = time.time() - t0
         if self.registry is not None:
-            # plans are keyed by what they were tuned for: meshless, the
-            # local point
-            self.registry.register(self.cfg, self.shape, plan, report=rep,
-                                   cache_tag=self.executor.cache_tag)
+            # plans are keyed by what they were tuned for: the chosen mesh
+            # when the mesh was swept, the fixed one else
+            self.registry.register(
+                self.cfg, self.shape, plan, report=rep,
+                mesh=plan.mesh if plan.mesh is not None else self.mesh,
+                cache_tag=self.executor.cache_tag)
         log.info(rep.summary())
         return plan, rep
 
@@ -501,6 +559,8 @@ class ComParTuner:
         "mean", "max"}`` table of bound/measured and the rows where the
         bound exceeded the score (which the certificate says are none)."""
         hw = getattr(self.executor, "hw", H100)
+        fixed_chips = getattr(self.executor, "n_chips", 1)
+        fixed_axes = mesh_axis_sizes(self.mesh) or None
         segs = {s.name: s for s in fragment(self.cfg)}
         stats: Dict[str, Dict[str, float]] = {}
         violations = []
@@ -515,9 +575,13 @@ class ComParTuner:
             kflops = self._kernel_tuning.floor_flops(
                 r["segment"], r["combo"].clause) \
                 if self._kernel_tuning is not None else 0.0
-            bound = combo_lower_bound(self.cfg, self.shape, seg, r["combo"],
-                                      1, hw, knobs=r["knobs"],
-                                      kernel_flops=kflops)
+            mesh = r["mesh"]
+            bound = combo_lower_bound(
+                self.cfg, self.shape, seg, r["combo"],
+                mesh.n_devices if mesh is not None else fixed_chips, hw,
+                knobs=r["knobs"],
+                mesh_axes=mesh.axis_sizes() if mesh is not None
+                else fixed_axes, kernel_flops=kflops)
             total = CostTerms.from_dict(r["cost"]).total_s
             if total <= 0.0:
                 continue
@@ -555,6 +619,8 @@ class ComParTuner:
                  per_seg_combos: Dict[str, List[Combination]],
                  knob_points: Sequence[GlobalKnobs],
                  rep: SweepReport, *, backend: str, workers: int,
+                 mesh_points: Optional[Sequence[MeshSpec]] = None,
+                 boundary_slack: bool = False,
                  kernel_tuning=None, static_checks: str = "off",
                  remote_url: Optional[str], remote_token: Optional[str],
                  fallback: Optional[str], retry,
@@ -566,18 +632,23 @@ class ComParTuner:
         retry rounds (``scheduler.drive``)."""
         # ONE key pair for the whole pipeline: the Recorder writes cache
         # entries under the keys the Scheduler reads
-        sk, mk = shape_key(self.shape), env_key(None, self.executor)
+        # a swept mesh point overrides mk per job (JobSpec.mesh_key)
+        sk, mk = shape_key(self.shape), env_key(self.mesh, self.executor)
         scheduler = Scheduler(
-            self.db, self.project, self.cfg, self.shape, None,
+            self.db, self.project, self.cfg, self.shape, self.mesh,
             self.executor, validate=self.validate,
             share_scores=share_scores, use_cache=use_cache,
-            shape_key=sk, mesh_key=mk, kernel_tuning=kernel_tuning,
-            static_checks=static_checks)
+            shape_key=sk, mesh_key=mk, boundary_slack=boundary_slack,
+            kernel_tuning=kernel_tuning, static_checks=static_checks,
+            # the mesh rule asks THIS process: valid for every backend
+            # but the remote one
+            static_devices=backend != "remote")
         recorder = Recorder(
             self.db, self.project, rep, shape_key=sk, mesh_key=mk,
             use_cache=use_cache, batch=record_batch)
         work = scheduler.build(segs, per_seg_combos, recorder,
-                               knob_points=knob_points)
+                               knob_points=knob_points,
+                               mesh_points=mesh_points)
         engine, transient_engine = self._engine(
             backend, workers=workers, remote_url=remote_url,
             remote_token=remote_token, fallback=fallback, retry=retry,
@@ -675,18 +746,21 @@ class ComParTuner:
             else [knobs]
         kids = {kn.kid: kn for kn in points}
         segs = fragment(self.cfg)
-        by_kid: Dict[str, Dict[str, List[Tuple[Combination,
-                                               CostTerms]]]] = {}
+        # (mesh mid or "", knob kid) -> segment -> rows: a uniform plan
+        # lives on one topology
+        by_gid: Dict[Tuple[str, str],
+                     Dict[str, List[Tuple[Combination, CostTerms]]]] = {}
         for r in self.db.results(self.project):
             if r["status"] != "done" or not r["cost"]:
                 continue
-            kid = (r["knobs"] or GlobalKnobs()).kid
-            by_kid.setdefault(kid, {}).setdefault(r["segment"], []).append(
+            gid = (r["mesh"].mid if r["mesh"] is not None else "",
+                   (r["knobs"] or GlobalKnobs()).kid)
+            by_gid.setdefault(gid, {}).setdefault(r["segment"], []).append(
                 (r["combo"], CostTerms.from_dict(r["cost"])))
         out = {}
         for pname in all_providers():
             best = None
-            for kid, rows in by_kid.items():
+            for (_, kid), rows in by_gid.items():
                 kn = kids.get(kid)
                 if kn is None:
                     continue

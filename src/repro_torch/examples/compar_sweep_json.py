@@ -20,8 +20,12 @@ at train_4k's smoke shape, scored by the dry run.  Without it, it runs on
 the card: stablelm-3b at full width cut to ``--layers`` layers, B=2 at
 S=2048 (4096 tokens a step; at B=1 the spec's microbatches=2 point cannot
 split the batch), the wall-clock executor, and the same spec with
-``kernel`` in {plain, cuda} added to its clauses.  ``--mesh-space`` (the
-reference's topology axis) raises: meshes are ROADMAP Queue 1 item 4.
+``kernel`` in {plain, cuda} added to its clauses.  ``--mesh-space`` adds
+the JSON ``"meshes"`` topology axis: the local point against the flat data
+ring of the default process group (one rank without a group: a
+world-size-1 group is made, and destroyed at the end).  The reference
+races a 2-way data ring on 2 local devices; a process here holds one
+device, so a 2-way ring needs a 2-rank group.
 """
 from __future__ import annotations
 
@@ -32,9 +36,11 @@ import os
 import sys
 import tempfile
 
+import torch
+
 from repro_torch.configs import get_arch, get_shape
 from repro_torch.configs.base import ShapeConfig
-from repro_torch.core.combinator import MESH_PENDING, load_sweep_json
+from repro_torch.core.combinator import load_sweep_json
 from repro_torch.core.db import SweepDB
 from repro_torch.core.tuner import ComParTuner
 from repro_torch.device import resolve_device
@@ -67,8 +73,8 @@ def parse_args(argv):
                     help="shared-secret auth token for a --token scoring "
                          "server (sent as Authorization: Bearer)")
     ap.add_argument("--mesh-space", dest="mesh_space", action="store_true",
-                    help="the reference's topology axis: not ported "
-                         "(ROADMAP Queue 1 item 4)")
+                    help="also sweep the JSON 'meshes' topology axis "
+                         "(local vs the default group's data ring)")
     return ap.parse_args(argv)
 
 
@@ -76,8 +82,6 @@ def main(argv=None):
     """Sweep, Continue, lint, save.  Returns what it measured (both
     reports, both plans and the paths), for callers that check it."""
     args = parse_args(sys.argv[1:] if argv is None else argv)
-    if args.mesh_space:
-        raise NotImplementedError(f"--mesh-space: {MESH_PENDING}")
     resolve_device(args.device)             # no card: raise before any I/O
     work = tempfile.gettempdir()
     spec = json.loads(json.dumps(SWEEP_SPEC))
@@ -92,6 +96,13 @@ def main(argv=None):
         executor = "wallclock"
         # on the card the clause axis also races the hand-written kernels
         spec["clauses"]["kernel"] = ["plain", "cuda"]
+    made_group = False
+    if args.mesh_space:
+        from repro_torch.launch.mesh import ensure_group, world_size
+        made_group = world_size() is None
+        ensure_group(torch.device(args.device).type)
+        kind = torch.device(args.device).type
+        spec["meshes"] = [None, {"data": world_size(), "device_kind": kind}]
     spec_path = os.path.join(work, "sweep_spec.json")
     with open(spec_path, "w") as f:
         json.dump(spec, f, indent=2)
@@ -123,6 +134,10 @@ def main(argv=None):
     print("first run:", rep.summary())
     assert rep.n_knob_points == 2
     print("per-knob fused totals:", rep.per_knob_total_s)
+    if sweep_spec.meshes is not None:
+        assert rep.n_mesh_points == len(sweep_spec.meshes)
+        assert plan.mesh is not None        # the topology was chosen
+        print("per-mesh fused totals:", rep.per_mesh_total_s)
 
     # second run: Continue mode, everything settled, near-instant
     db2 = SweepDB(db_path)
@@ -136,6 +151,7 @@ def main(argv=None):
     print("continue run:", rep2.summary())
     assert rep2.n_scored == 0 and rep2.elapsed_s < rep.elapsed_s
     assert plan2.knobs == plan.knobs       # the joint argmin is stable
+    assert plan2.mesh == plan.mesh
     print("\nfused plan (knobs chosen by the sweep, not supplied):")
     print(plan2.describe())
 
@@ -149,6 +165,9 @@ def main(argv=None):
     print(f"fused plan written to {plan_path} (lint: clean)")
     db.conn.close()
     db2.conn.close()
+    if made_group:
+        from repro_torch.launch.mesh import destroy_group
+        destroy_group()
     return {"cfg": cfg, "shape": shape, "report": rep, "report2": rep2,
             "plan": plan, "plan2": plan2, "plan_path": plan_path,
             "db_path": db_path}

@@ -18,6 +18,17 @@ shape and dtype, for ``FakeTensorMode``) and a flop formula for
 ``torch.utils.flop_counter.FlopCounterMode``: the kernel's own products,
 as ``chip_smoke.py``'s bound counts them.  The sweep's dry run
 (``core/executor.py``) counts an op like any other operator from these.
+
+Under a mesh the model hands these wrappers DTensors.  Each op has a
+sharding rule (``runtime.sharding.on_shards``): its tensors may stay sharded on the
+batch dim and on one independent dim (heads; rglru's features), on the
+same mesh axes in every input, and each other dim is gathered first.  The
+hand kernel (or, on the CPU, its plain version) then runs on each rank's
+local shard, and the op's plain backward on the same shards.  Heads stay
+sharded only when the kv heads are sharded on the same axis (each local q
+head then finds its kv head, ``h // G``, in the local shard), so a GQA
+layout with ``num_kv_heads`` indivisible by the axis, or K/V sharded on
+sequence, is gathered to replicated heads first.
 """
 from __future__ import annotations
 
@@ -30,6 +41,12 @@ from repro_torch.kernels.flash_decode import flash_decode_fwd
 from repro_torch.kernels.mlstm import mlstm_fwd
 from repro_torch.kernels.rglru import rglru_fwd
 from repro_torch.kernels.rmsnorm import rmsnorm_fwd
+from repro_torch.runtime.sharding import on_shards
+
+
+def _meshed(*ts) -> bool:
+    from torch.distributed.tensor import DTensor
+    return any(isinstance(t, DTensor) for t in ts)
 
 
 def _vjp(fn, inputs, grads):
@@ -153,6 +170,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     uses its own tiles and the plain version none, so neither reads them.
     The backward differentiates the plain chunked attention at ``block_q``.
     """
+    if _meshed(q, k, v):
+        bh = (0, 2)
+        return on_shards(lambda *t: [_FLASH_ATTENTION(*t, causal, window,
+                                                       block_q)],
+                          [q, k, v], [bh] * 3, [bh])[0]
     return _FLASH_ATTENTION(q, k, v, causal, window, block_q)
 
 
@@ -199,7 +221,13 @@ def flash_decode(q, k_cache, v_cache, pos: int, *, block_k: int = 1024,
             t.requires_grad for t in (q, k_cache, v_cache)):
         raise RuntimeError("flash_decode has no backward (nor has the "
                            "reference's); call it under torch.no_grad()")
-    out = _FLASH_DECODE(q, k_cache, v_cache, int(pos), return_lse)
+    if _meshed(q, k_cache, v_cache):
+        out = on_shards(
+            lambda *t: list(_FLASH_DECODE(*t, int(pos), return_lse)),
+            [q, k_cache, v_cache], [(0, 1), (0, 2), (0, 2)],
+            [(0, 1)] * (2 if return_lse else 1))
+    else:
+        out = _FLASH_DECODE(q, k_cache, v_cache, int(pos), return_lse)
     return tuple(out) if return_lse else out[0]
 
 
@@ -216,6 +244,9 @@ def rglru(log_a, b):
     """log_a, b: (B,S,dr) f32 -> h (B,S,dr) f32.  The CUDA kernel scans the
     whole sequence, so the clause's ``mlstm_chunk`` has no part here; the
     backward differentiates ``ref.rglru_ref``."""
+    if _meshed(log_a, b):
+        return on_shards(lambda *t: [_RGLRU(*t)], [log_a, b],
+                          [(0, 2)] * 2, [(0, 2)])[0]
     return _RGLRU(log_a, b)
 
 
@@ -245,6 +276,9 @@ def mlstm_chunkwise(q, k, v, li, lf, *, chunk: int = 256):
     forward on the CPU and backward everywhere; the CUDA kernel uses its
     own 64-row chunks.
     """
+    if _meshed(q, k, v, li, lf):
+        return on_shards(lambda *t: [_MLSTM(*t, chunk)], [q, k, v, li, lf],
+                          [(0, 1)] * 5, [(0, 1)])[0]
     return _MLSTM(q, k, v, li, lf, chunk)
 
 

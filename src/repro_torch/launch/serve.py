@@ -38,6 +38,7 @@ import numpy as np
 from repro_torch.configs import ARCHS, get_arch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.plan import Plan, uniform_plan
+from repro_torch.launch.mesh import destroy_group, launch_mesh
 from repro_torch.models.context import SegmentClause
 from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.serve.registry import PlanRegistry, serving_shape
@@ -109,6 +110,7 @@ def serve(argv=None):
                          "versions of the kernels)")
     args = ap.parse_args(argv)
 
+    mesh = launch_mesh(args.device)
     cfg = get_arch(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
@@ -121,7 +123,7 @@ def serve(argv=None):
 
     engine = ServeEngine(cfg, plan, capacity=args.batch,
                          cache_len=args.cache_len, seed=args.seed,
-                         device=args.device)
+                         device=args.device, mesh=mesh)
     reqs = synthetic_requests(args.requests, cfg.vocab_size,
                               prompt_len=args.prompt_len,
                               tokens=args.tokens, seed=args.seed)
@@ -136,4 +138,7 @@ def serve(argv=None):
 
 
 if __name__ == "__main__":
-    serve()
+    try:
+        serve()
+    finally:
+        destroy_group()     # the launcher's group, if launch_mesh joined one

@@ -39,8 +39,10 @@ from repro_torch.core.combinator import GlobalKnobs
 from repro_torch.core.plan import Plan, uniform_plan
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import destroy_group, launch_mesh
 from repro_torch.models.context import SegmentClause
-from repro_torch.train.step import init_train_state, make_train_step
+from repro_torch.train.step import (init_train_state, make_train_step,
+                                    place_batch)
 
 
 def default_plan(cfg: ArchConfig, shape: ShapeConfig) -> Plan:
@@ -102,6 +104,7 @@ def train(argv=None):
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
+    mesh = launch_mesh(dev)
     cfg = get_arch(args.arch)
     shape = get_shape(args.shape)
     if args.smoke:
@@ -112,15 +115,16 @@ def train(argv=None):
 
     plan = Plan.load(args.plan) if args.plan else default_plan(cfg, shape)
     print(f"[train] arch={cfg.name} shape={shape.name} "
-          f"(B={shape.global_batch}, S={shape.seq_len}) device={dev}")
+          f"(B={shape.global_batch}, S={shape.seq_len}) device={dev} "
+          f"mesh={dict(zip(mesh.mesh_dim_names, mesh.shape)) if mesh else None}")
     print("[train] plan: " + ", ".join(sorted(
         {c.label() for c in plan.segments.values()}))
         + f"; knobs {vars(plan.knobs)}")
 
-    step_fn = make_train_step(cfg, plan, device=dev, peak_lr=args.lr,
-                              warmup=args.warmup)
+    step_fn = make_train_step(cfg, plan, device=dev, mesh=mesh,
+                              peak_lr=args.lr, warmup=args.warmup)
     params, opt = init_train_state(
-        cfg, plan, torch.Generator().manual_seed(args.seed), dev)
+        cfg, plan, torch.Generator().manual_seed(args.seed), dev, mesh=mesh)
     data = SyntheticLM(cfg, shape, seed=args.seed, device=dev)
     store = CheckpointStore(args.ckpt_dir or os.path.join(
         tempfile.gettempdir(), f"repro_torch_ckpt_{cfg.name}"), keep=3)
@@ -134,7 +138,7 @@ def train(argv=None):
     hb = Heartbeat()
     losses = []
     for step in range(start, args.steps):
-        batch = data.batch_at(step)
+        batch = place_batch(data.batch_at(step), cfg, plan, mesh)
         data.state.step = step + 1
         t0 = time.perf_counter()
         params, opt, metrics = step_fn(params, opt, batch)
@@ -160,4 +164,7 @@ def train(argv=None):
 
 
 if __name__ == "__main__":
-    train()
+    try:
+        train()
+    finally:
+        destroy_group()     # the launcher's group, if launch_mesh joined one

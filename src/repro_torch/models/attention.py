@@ -7,7 +7,14 @@ Execution paths, selected by the segment clause as in the reference:
                   (``repro_torch.kernels``).
 
 Decode writes the new token's K/V into the caches in place (the reference
-returns updated copies); the caches are returned all the same.
+returns updated copies); the caches are returned all the same.  Under a
+mesh the caches are DTensors, and the write lands on each rank's local
+shard (:func:`_write_slot`); where the rules shard ``kv_seq`` the cache is
+gathered, written and resharded, as the reference's pure path does.
+``decode_shardmap`` (the reference's
+``attn_decode_shardmap``) is ROADMAP Queue 1 item 4(b) and raises under a
+mesh; meshless it changes nothing, as the reference's needs a sharded
+``kv_seq``.
 """
 from __future__ import annotations
 
@@ -152,27 +159,34 @@ def decode_attention(q1, k_cache, v_cache, pos, *, window: int = 0,
 
 # --- module-level apply ------------------------------------------------------
 
-def _project_qkv(p, x, cfg: ArchConfig, positions):
+def _project_qkv(p, x, cfg: ArchConfig, ctx: ModelContext, positions):
     q = dense(x, p["wq"])                              # (B,S,H,D)
     k = dense(x, p["wk"])                              # (B,S,KV,D)
     v = dense(x, p["wv"])
     q = apply_rope(q, positions, cfg.rope)
     k = apply_rope(k, positions, cfg.rope)
+    q = ctx.constrain(q, ("batch", "seq", "heads", None))
+    k = ctx.constrain(k, ("batch", "seq", "kv_heads", None))
+    v = ctx.constrain(v, ("batch", "seq", "kv_heads", None))
     return q, k, v
 
 
 def attn_apply(p, x, cfg: ArchConfig, ctx: ModelContext, positions):
     """Full-sequence attention (train / prefill). x: (B,S,d_model)."""
-    q, k, v = _project_qkv(p, x, cfg, positions)
+    q, k, v = _project_qkv(p, x, cfg, ctx, positions)
     cl = ctx.clause
     if cl.kernel == "cuda":
         from repro_torch import kernels as kops
         o = kops.flash_attention(q, k, v, causal=True, window=cfg.window_size,
                                  block_q=cl.block_q, block_k=cl.block_k)
     else:
-        o = chunked_attention(q, k, v, pos_q=positions, pos_k=positions,
-                              window=cfg.window_size, q_chunk=cl.block_q)
-    return torch.tensordot(o, p["wo"], dims=([2, 3], [0, 1])).to(x.dtype)
+        o = _local(ctx, lambda q, k, v: chunked_attention(
+            q, k, v, pos_q=positions, pos_k=positions,
+            window=cfg.window_size, q_chunk=cl.block_q),
+            [q, k, v], [(0, 2)] * 3, (0, 2))
+    o = ctx.constrain(o, ("batch", "seq", "heads", None))
+    y = torch.tensordot(o, p["wo"], dims=([2, 3], [0, 1])).to(x.dtype)
+    return ctx.constrain(y, ("batch", "seq", "embed"))
 
 
 def attn_cache_spec(cfg: ArchConfig, batch: int, smax: int):
@@ -202,25 +216,68 @@ def attn_decode(p, x1, cache, pos, cfg: ArchConfig, ctx: ModelContext):
     k_cache, v_cache = cache["k"], cache["v"]
     cache_len = k_cache.shape[1]
     slot = pos % cache_len if cfg.window_size else pos  # ring buffer if windowed
-    if vector_pos:
-        rows = torch.arange(x1.shape[0], device=x1.device)
-        k_cache[rows, slot] = k
-        v_cache[rows, slot] = v
-    else:
-        k_cache[:, slot] = k
-        v_cache[:, slot] = v
+    if ctx.meshed and ctx.clause.decode_shardmap:
+        raise NotImplementedError(
+            "decode_shardmap under a mesh (the reference's "
+            "attn_decode_shardmap) is ROADMAP Queue 1 item 4(b)")
+    k_cache = _write_slot(ctx, k_cache, k, slot)
+    v_cache = _write_slot(ctx, v_cache, v, slot)
+    k_cache = ctx.constrain(k_cache, ("batch", "kv_seq", "kv_heads", None))
+    v_cache = ctx.constrain(v_cache, ("batch", "kv_seq", "kv_heads", None))
     if cfg.window_size:
         # ring buffer: all valid entries attendable except future ones
         last = (torch.clamp(pos, max=cache_len - 1) if vector_pos
                 else min(pos, cache_len - 1))
-        o = decode_attention(q, k_cache, v_cache, last, window=0,
-                             upcast=ctx.clause.cache_upcast)
+        o = _decode_attention(ctx, q, k_cache, v_cache, last)
     elif ctx.clause.kernel == "cuda" and not vector_pos:
         from repro_torch import kernels as kops
         o = kops.flash_decode(q, k_cache, v_cache, pos,
                               block_k=ctx.clause.block_k)
     else:
-        o = decode_attention(q, k_cache, v_cache, pos,
-                             upcast=ctx.clause.cache_upcast)
+        o = _decode_attention(ctx, q, k_cache, v_cache, pos)
     y = torch.tensordot(o, p["wo"], dims=([1, 2], [0, 1])).to(x1.dtype)
+    y = ctx.constrain(y, ("batch", "embed"))
     return y, {"k": k_cache, "v": v_cache}
+
+
+def _local(ctx: ModelContext, fn, tensors, dims, out_dims):
+    """``fn(*tensors)``, on each rank's local shards under a mesh
+    (``runtime.sharding.on_shards``: batch and heads stay sharded where
+    the kv heads are too, every other dim is gathered), as the kernel ops
+    run."""
+    if not ctx.meshed:
+        return fn(*tensors)
+    from repro_torch.runtime.sharding import on_shards
+    return on_shards(lambda *t: [fn(*t)], tensors, dims, [out_dims])[0]
+
+
+def _decode_attention(ctx: ModelContext, q, k_cache, v_cache, pos):
+    """``decode_attention`` at the clause's upcast, on local shards under
+    a mesh; a vector ``pos`` is split with the batch."""
+    up = ctx.clause.cache_upcast
+    if _is_vector(pos):
+        return _local(ctx, lambda q, k, v, p: decode_attention(
+            q, k, v, p, upcast=up), [q, k_cache, v_cache, pos],
+            [(0, 1), (0, 2), (0, 2), (0,)], (0, 1))
+    return _local(ctx, lambda q, k, v: decode_attention(
+        q, k, v, pos, upcast=up), [q, k_cache, v_cache],
+        [(0, 1), (0, 2), (0, 2)], (0, 1))
+
+
+def _write_slot(ctx: ModelContext, cache, new, slot):
+    """Set row b's ``slot`` (an int or a (B,) tensor) of the (B,Smax,KV,D)
+    ``cache`` to ``new[b]``, in place, and return the cache.  Under a mesh
+    the write runs on each rank's local shard (batch and kv heads stay
+    sharded); a sharded ``kv_seq`` is gathered first, and the caller's
+    ``constrain`` reshards it."""
+    def write(c, n, *rows_slot):
+        if rows_slot:                       # a slot per row
+            rows = torch.arange(c.shape[0], device=c.device)
+            c[rows, rows_slot[0]] = n.to(c.dtype)
+        else:
+            c[:, slot] = n.to(c.dtype)
+        return c
+    if _is_vector(slot):
+        return _local(ctx, write, [cache, new, slot],
+                      [(0, 2), (0, 1), (0,)], (0, 2))
+    return _local(ctx, write, [cache, new], [(0, 2), (0, 1)], (0, 2))

@@ -6,14 +6,17 @@ clause so plan JSON round-trips between the two packages; ``kernel`` takes
 ``"plain"`` (PyTorch ops) or ``"cuda"`` (the hand-written kernels in
 ``repro_torch.kernels``).
 
-``ModelContext`` has no sharding rules and no interpret flag: this port is
-meshless so far, and a CUDA kernel has no interpret mode.  ``moe_groups``
-is the reference's GShard dispatch-group count; meshless it is 1, as the
-reference's ``dp_shards(None)``.
+``ModelContext`` carries the segment's sharding ``rules`` (the null
+rules without a mesh) and no interpret flag: a CUDA kernel has no
+interpret mode.  ``moe_groups`` is the reference's GShard dispatch-group
+count, ``core.plan.dp_shards`` of the mesh (1 without one).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field, replace
+from typing import Tuple
+
+from repro_torch.runtime.sharding import Rules, is_device_mesh
 
 KERNELS = ("plain", "cuda")
 
@@ -45,9 +48,17 @@ class SegmentClause:
 
 @dataclass(frozen=True)
 class ModelContext:
+    rules: Rules = field(default_factory=Rules.null)
     clause: SegmentClause = SegmentClause()
     moe_groups: int = 1          # GShard-style dispatch groups
     decode: bool = False
 
     def with_(self, **kw) -> "ModelContext":
         return replace(self, **kw)
+
+    @property
+    def meshed(self) -> bool:
+        return is_device_mesh(self.rules.mesh)
+
+    def constrain(self, x, axes: Tuple[str, ...]):
+        return self.rules.constrain(x, axes)

@@ -20,8 +20,12 @@ def mlp_specs(cfg: ArchConfig, d_ff: int = 0, dtype=None):
 def mlp_apply(p, x, cfg: ArchConfig, ctx: ModelContext):
     act = act_fn(cfg.act)
     h = dense(x, p["wi"])
+    h_axes = ("batch", "seq", "ffn") if h.ndim == 3 else ("batch", "ffn")
+    h = ctx.constrain(h, h_axes)
     if cfg.glu:
         h = act(dense(x, p["wg"])) * h
     else:
         h = act(h)
-    return dense(h, p["wo"])
+    y = dense(h, p["wo"])
+    axes = ("batch", "seq", "embed") if y.ndim == 3 else ("batch", "embed")
+    return ctx.constrain(y, axes)

@@ -26,6 +26,7 @@ from repro_torch.models.context import ModelContext
 from repro_torch.models.layers import norm_apply, norm_specs
 from repro_torch.models.params import (ParamSpec, TensorSpec, layer_slice,
                                        stack_specs, tree_map)
+from repro_torch.runtime.sharding import mesh_scope
 
 SEG_EMBED = "embed"
 SEG_HEAD = "head"
@@ -120,7 +121,9 @@ def _run_group(x, gparams, group: ScanGroup, cfg, ctx, positions):
 
 
 def embed_tokens(params, tokens, cfg: ArchConfig, ctx: ModelContext):
-    return F.embedding(tokens, params[SEG_EMBED]["tok"])
+    x = F.embedding(tokens, params[SEG_EMBED]["tok"])
+    axes = ("batch", "seq", "embed") if x.ndim == 3 else ("batch", "embed")
+    return ctx.constrain(x, axes)
 
 
 def _matmul_f32(x, w):
@@ -147,7 +150,10 @@ def lm_head(params, x, cfg: ArchConfig, ctx: ModelContext):
     x = norm_apply(params[SEG_HEAD]["norm"], x, cfg.norm)
     w = params[SEG_EMBED]["tok"].T if cfg.tie_embeddings \
         else params[SEG_HEAD]["out"]
-    return _matmul_f32(x, w)
+    logits = _matmul_f32(x, w)
+    axes = ("batch", "seq", "vocab") if logits.ndim == 3 \
+        else ("batch", "vocab")
+    return ctx.constrain(logits, axes)
 
 
 def forward(params, batch, cfg: ArchConfig, ctxs):
@@ -156,13 +162,21 @@ def forward(params, batch, cfg: ArchConfig, ctxs):
     it is the residual stream's input, and the embedding table is not
     read.
 
+    Under a mesh (the contexts' rules) the params are DTensors placed by
+    ``param_pspecs`` and plain tensors in the batch count as replicated.
+
     Returns (logits (B,S,V) f32, aux_loss scalar f32 tensor).
     """
+    ectx = _ctx_for(ctxs, SEG_EMBED)
+    with mesh_scope(ectx.meshed):
+        return _forward(params, batch, cfg, ctxs, ectx)
+
+
+def _forward(params, batch, cfg: ArchConfig, ctxs, ectx: ModelContext):
     if "embeds" in batch:          # vlm/audio stub frontend
-        x = batch["embeds"]
+        x = ectx.constrain(batch["embeds"], ("batch", "seq", "embed"))
     else:
-        x = embed_tokens(params, batch["tokens"], cfg,
-                         _ctx_for(ctxs, SEG_EMBED))
+        x = embed_tokens(params, batch["tokens"], cfg, ectx)
     S = x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     aux = 0.0
@@ -213,7 +227,14 @@ def decode_step(params, caches, tokens, pos, cfg: ArchConfig, ctxs):
     recurrent state is written back into them with ``copy_`` (a new tensor
     bound to the tree would be lost).
     """
-    x = embed_tokens(params, tokens, cfg, _ctx_for(ctxs, SEG_EMBED))
+    ectx = _ctx_for(ctxs, SEG_EMBED)
+    with mesh_scope(ectx.meshed):
+        return _decode_step(params, caches, tokens, pos, cfg, ctxs, ectx)
+
+
+def _decode_step(params, caches, tokens, pos, cfg: ArchConfig, ctxs,
+                 ectx: ModelContext):
+    x = embed_tokens(params, tokens, cfg, ectx)
     for gi, group in enumerate(cfg.stack_plan()):
         seg = f"g{gi}"
         ctx = _ctx_for(ctxs, seg).with_(decode=True)

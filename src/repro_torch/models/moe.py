@@ -35,9 +35,10 @@ a value the reference computes:
   serving engine's batched == sequential contract needs every row to be
   a deterministic function of its own inputs.
 
-The all-to-all dispatch (``moe_apply_a2a``) needs a mesh: it comes with
-multi-device (ROADMAP Queue 1 item 4).  Without a mesh the reference takes
-the sorted path for ``moe_dispatch="a2a"`` too, and so does the port.
+The all-to-all dispatch (``moe_apply_a2a``) is ROADMAP Queue 1 item 4(b):
+under a mesh ``moe_dispatch="a2a"`` raises.  Without a mesh the reference
+takes the sorted path for ``moe_dispatch="a2a"`` too, and so does the
+port.
 """
 from __future__ import annotations
 
@@ -157,13 +158,26 @@ def _expert_mm(h, w):
 def moe_apply(p, x, cfg: ArchConfig, ctx: ModelContext):
     """x: (B, S, d) -> ((B, S, d), aux).  Meshless, every dispatch clause
     (``"sorted"`` and ``"a2a"``) takes the sorted path, as the
-    reference's does without a mesh."""
+    reference's does without a mesh.  Under a mesh ``"a2a"`` (the
+    reference's ``moe_apply_a2a``) is ROADMAP Queue 1 item 4(b) and
+    raises."""
+    if ctx.meshed and ctx.clause.moe_dispatch == "a2a":
+        raise NotImplementedError(
+            "moe_dispatch='a2a' under a mesh (the reference's "
+            "moe_apply_a2a) is ROADMAP Queue 1 item 4(b)")
     return moe_apply_sorted(p, x, cfg, ctx)
 
 
 def moe_apply_sorted(p, x, cfg: ArchConfig, ctx: ModelContext):
     """x: (B, S, d) -> ((B, S, d), aux loss f32).  Decode (``ctx.decode``)
-    discards the aux loss, so it is not computed there (None)."""
+    discards the aux loss, so it is not computed there (None).
+
+    Under a mesh the G dispatch groups are sharded on the batch axes
+    (``moe_groups`` is ``dp_shards``), and the routing, the dispatch and
+    the combine (sorts and index arithmetic that DTensor has no rules for)
+    run on each rank's own groups (``runtime.sharding.on_shards``) with the
+    router whole; the expert products run on the DTensors as the
+    rules lay them out."""
     B, S, d = x.shape
     E, k = cfg.num_experts, cfg.experts_per_token
     T = B * S
@@ -173,13 +187,28 @@ def moe_apply_sorted(p, x, cfg: ArchConfig, ctx: ModelContext):
     Sg = T // G
     C = capacity(cfg, Sg)
 
-    xf = x.reshape(G, Sg, d)
-    probs, gates, idx = route(p["router"], xf, k)     # (G,Sg,E|k|k)
-    aux = None if ctx.decode else aux_loss(probs, idx, E, k)
+    xf = ctx.constrain(x.reshape(G, Sg, d), ("batch", None, "embed"))
+    infos = []
 
-    parts = [_dispatch_group(xf[g], gates[g], idx[g], E, C)
-             for g in range(G)]
-    buf = _stack([b for b, _ in parts])               # (G, E, C, d)
+    def dispatch(xl, router):
+        probs, gates, idx = route(router, xl, k)
+        parts = [_dispatch_group(xl[g], gates[g], idx[g], E, C)
+                 for g in range(xl.shape[0])]
+        infos.extend(info for _, info in parts)
+        return [probs, gates, idx, _stack([b for b, _ in parts])]
+
+    def combine(out_l, gates_l):
+        return [_stack([_combine_group(out_l[g], infos[g], gates_l[g], Sg)
+                        for g in range(out_l.shape[0])])]
+
+    if ctx.meshed:
+        from repro_torch.runtime.sharding import on_shards
+        probs, gates, idx, buf = on_shards(
+            dispatch, [xf, p["router"]], [(0,), None], [(0,)] * 4)
+    else:
+        probs, gates, idx, buf = dispatch(xf, p["router"])
+    aux = None if ctx.decode else aux_loss(probs, idx, E, k)
+    buf = ctx.constrain(buf, ("batch", "experts", None, "embed"))
 
     act = act_fn(cfg.act)
     h = _expert_mm(buf, p["wi"])
@@ -187,8 +216,13 @@ def moe_apply_sorted(p, x, cfg: ArchConfig, ctx: ModelContext):
         h = act(_expert_mm(buf, p["wg"])) * h
     else:
         h = act(h)
-    out_buf = _expert_mm(h, p["wo"])
+    h = ctx.constrain(h, ("batch", "experts", None, "expert_ffn"))
+    out_buf = ctx.constrain(_expert_mm(h, p["wo"]),
+                            ("batch", "experts", None, "embed"))
 
-    y = _stack([_combine_group(out_buf[g], info, gates[g], Sg)
-                for g, (_, info) in enumerate(parts)])
-    return y.reshape(B, S, d).to(x.dtype), aux
+    if ctx.meshed:
+        y = on_shards(combine, [out_buf, gates], [(0,), (0,)], [(0,)])[0]
+    else:
+        y = combine(out_buf, gates)[0]
+    y = ctx.constrain(y.reshape(B, S, d).to(x.dtype), ("batch", "seq", "embed"))
+    return y, aux

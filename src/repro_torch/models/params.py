@@ -148,3 +148,22 @@ def stack_specs(specs, n: int):
 def param_count(specs) -> int:
     return sum(math.prod(s.shape) for s in tree_leaves(specs))
 
+
+
+# --- sharding ------------------------------------------------------------------
+
+def param_pspecs(specs, rules):
+    """Spec tree -> pspec tree under ``rules`` (a
+    :class:`repro_torch.runtime.sharding.Rules`), as the reference's."""
+    return tree_map(lambda s: rules.pspec(s.logical_axes, s.shape), specs)
+
+
+def place_params(params, specs, seg_rules):
+    """Place a full parameter tree (every rank holds the same values, from
+    ``init_params`` or ``models/convert.py``) on the mesh of
+    ``seg_rules`` (``core.plan.segment_rules``): each leaf becomes a
+    DTensor laid out by its segment's ``param_pspecs``, each rank keeping
+    its own shard.  A leaf that requires grad stays a leaf that does."""
+    return {seg: tree_map(lambda t, s: seg_rules[seg].distribute(
+        t, s.logical_axes), tree, specs[seg])
+        for seg, tree in params.items()}

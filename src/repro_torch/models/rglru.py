@@ -81,6 +81,7 @@ def rec_apply(p, x, cfg: ArchConfig, ctx: ModelContext):
     else:
         h = rglru_ref(log_a, b)
     y = dense(h.to(x.dtype) * gate, p["w_out"])
+    y = ctx.constrain(y, ("batch", "seq", "embed"))
     return x + y
 
 

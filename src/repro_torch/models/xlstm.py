@@ -106,7 +106,8 @@ def mlstm_apply(p, x, cfg: ArchConfig, ctx: ModelContext):
         h = kops.mlstm_chunkwise(q, k, v, li, lf, chunk=c)
     else:
         h = mlstm_chunkwise_ref(q, k, v, li, lf, chunk=c)
-    return x + _mlstm_out(p, h, gate, x)
+    y = ctx.constrain(_mlstm_out(p, h, gate, x), ("batch", "seq", "embed"))
+    return x + y
 
 
 def mlstm_decode(p, x1, state, cfg: ArchConfig, ctx: ModelContext):
@@ -205,7 +206,9 @@ def slstm_apply(p, x, cfg: ArchConfig, ctx: ModelContext):
     for t in range(S):
         h, state = _slstm_cell(zx[:, t], p["r"], state)
         hs.append(h)
-    return x + _slstm_out(p, torch.stack(hs, dim=1), x)
+    y = ctx.constrain(_slstm_out(p, torch.stack(hs, dim=1), x),
+                      ("batch", "seq", "embed"))
+    return x + y
 
 
 def slstm_decode(p, x1, state, cfg: ArchConfig, ctx: ModelContext):

@@ -11,6 +11,11 @@ chunk of at most ``CHUNK`` elements at a time: at granite-8b's width a
 stacked MLP leaf of 8 layers holds 470 M elements, and a whole-leaf f32
 update would make several 1.9 GB temporaries that XLA's fused update
 never has.
+
+Under a mesh the leaves are DTensors: m and v take their parameter's
+placements, each gradient is redistributed to them (a ``Partial`` one is
+reduced), and the update runs on each rank's local shards.  The global
+norm sums each leaf's squares over the mesh.
 """
 from __future__ import annotations
 
@@ -35,8 +40,25 @@ def adamw_init(params, state_dtype: str = "float32") -> AdamWState:
     dt = DTYPES[state_dtype]
 
     def zeros(p):
+        if _is_dtensor(p):
+            return torch.zeros_like(p, dtype=dt, requires_grad=False)
         return torch.zeros(p.shape, dtype=dt, device=p.device)
     return AdamWState(0, tree_map(zeros, params), tree_map(zeros, params))
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def _local(t, like=None):
+    """A DTensor's local shard, laid out as ``like`` first; a plain
+    tensor as it is."""
+    if not _is_dtensor(t):
+        return t
+    if like is not None and tuple(t.placements) != tuple(like.placements):
+        t = t.redistribute(like.device_mesh, like.placements)
+    return t.to_local()
 
 
 def cosine_lr(step: int, *, peak_lr: float, warmup: int = 100,
@@ -58,8 +80,13 @@ def _chunks(t: torch.Tensor):
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in f32 (0-dim tensor)."""
-    sq = [c.float().square().sum() for x in tree_leaves(tree)
-          for c in x.reshape(-1).split(CHUNK)]
+    sq = []
+    for x in tree_leaves(tree):
+        if _is_dtensor(x):
+            sq.append(x.float().square().sum().full_tensor())
+        else:
+            sq.extend(c.float().square().sum()
+                      for c in x.reshape(-1).split(CHUNK))
     return torch.stack(sq).sum().sqrt()
 
 
@@ -81,6 +108,7 @@ def adamw_update(grads, state: AdamWState, params, *, lr: float,
         bc2 = 1.0 - b2 ** step
         for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state.m),
                               tree_leaves(state.v), tree_leaves(params)):
+            g, m, v, p = _local(g, p), _local(m), _local(v), _local(p)
             for gc, mc, vc, pc in zip(g.reshape(-1).split(CHUNK),
                                       _chunks(m), _chunks(v), _chunks(p)):
                 if scale is not None:     # in g's dtype, as the reference

@@ -29,6 +29,13 @@ expert receives more than ``slots`` tokens, none is dropped, and the
 combine sums each row's own terms in a fixed order (no atomics).  For
 qwen3-moe-30b-a3b at 8 slots, C = max(8, min(int(1.25 * 8 * 8 / 128), 8))
 = 8; admission (one row) always fits.
+
+**Under a mesh** (``mesh=``, a ``DeviceMesh`` over the default group,
+the reference's ``ServeEngine(..., mesh=)``) every rank runs the same
+engine on the same requests: the params and the caches are DTensors
+placed by the plan's rules (``train.step.param_shardings``,
+``serve.step.cache_shardings``), each step's tokens come back gathered,
+and admission writes a slot through the caches' global value.
 """
 from __future__ import annotations
 
@@ -45,9 +52,13 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.plan import Plan
 from repro_torch.device import resolve_device
 from repro_torch.models.blocks import ATTN_KINDS, block_cache_spec
+from repro_torch.core.plan import segment_rules
 from repro_torch.models.model import init_cache, model_specs
-from repro_torch.models.params import init_params, tree_map
-from repro_torch.serve.step import make_decode_step, make_prefill_cache
+from repro_torch.models.params import (init_params, place_params, tree_leaves,
+                                       tree_map)
+from repro_torch.runtime.sharding import local_range
+from repro_torch.serve.step import (make_decode_step, make_prefill_cache,
+                                    place_caches)
 
 log = logging.getLogger("repro_torch.serve")
 
@@ -155,9 +166,26 @@ def cache_batch_axes(cfg: ArchConfig):
 
 
 def _put_row(caches, filled, axes, s: int):
-    """Copy a B=1 cache tree into slot ``s`` of the batch tree, in place."""
+    """Copy a B=1 cache tree into slot ``s`` of the batch tree, in place.
+    Under a mesh each leaf's B=1 row takes the leaf's layout on its other
+    dims, and the rank whose shard holds slot ``s`` copies it there."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
     def put(c, f, ax):
-        c[(slice(None),) * ax + (s,)].copy_(f[(slice(None),) * ax + (0,)])
+        at = (slice(None),) * ax
+        if not isinstance(c, DTensor):
+            c[at + (s,)].copy_(f[at + (0,)])
+            return
+        mesh = c.device_mesh
+        if not isinstance(f, DTensor):
+            f = DTensor.from_local(f, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        f = f.redistribute(mesh, [Replicate() if isinstance(p, Shard)
+                                  and p.dim == ax else p
+                                  for p in c.placements])
+        lo, hi = local_range(c, ax)
+        if lo <= s < hi:
+            c.to_local()[at + (s - lo,)].copy_(f.to_local()[at + (0,)])
     tree_map(put, caches, filled, axes)
     return caches
 
@@ -173,9 +201,10 @@ class ServeEngine:
     """
 
     def __init__(self, cfg: ArchConfig, plan: Plan, *, capacity: int = 4,
-                 cache_len: int = 64, params=None, seed: int = 0,
+                 cache_len: int = 64, mesh=None, params=None, seed: int = 0,
                  device="cuda"):
         self.device = resolve_device(device)
+        self.mesh = mesh
         if cfg.is_moe:
             log.warning(
                 "%s is MoE: expert routing mixes rows across the batch, "
@@ -184,12 +213,18 @@ class ServeEngine:
                 cfg.name)
         self.cfg, self.plan = cfg, plan
         self.capacity, self.cache_len = int(capacity), int(cache_len)
-        self._step = make_decode_step(cfg, plan, device=self.device)
-        self._prefill = make_prefill_cache(cfg, plan, device=self.device)
+        self._step = make_decode_step(cfg, plan, device=self.device,
+                                      mesh=mesh)
+        self._prefill = make_prefill_cache(cfg, plan, device=self.device,
+                                           mesh=mesh)
         if params is None:
             params = init_params(model_specs(cfg),
                                  torch.Generator().manual_seed(seed),
                                  self.device)
+        if mesh is not None and not any(
+                hasattr(t, "device_mesh") for t in tree_leaves(params)):
+            params = place_params(params, model_specs(cfg),
+                                  segment_rules(cfg, plan, mesh))
         self.params = params
         self._axes = cache_batch_axes(cfg)
         # only full-causal KV caches bound a request's length; windowed
@@ -225,7 +260,7 @@ class ServeEngine:
         B = self.capacity
         queue = deque(reqs)
         slots: List[Optional[_Slot]] = [None] * B
-        caches = init_cache(self.cfg, B, self.cache_len, self.device)
+        caches = self._fresh_cache(B)
         tokens = np.zeros((B,), np.int64)
         pos = np.zeros((B,), np.int64)
         stats = self.stats = ServeStats(capacity=B)
@@ -289,7 +324,7 @@ class ServeEngine:
         t = time.perf_counter()
         prompt = torch.tensor([req.prompt], dtype=torch.int64,
                               device=self.device)
-        fresh = init_cache(self.cfg, 1, self.cache_len, self.device)
+        fresh = self._fresh_cache(1)
         first, _, filled = self._prefill(self.params, fresh, prompt)
         caches = _put_row(caches, filled, self._axes, s)
         first = int(first[0])
@@ -299,6 +334,11 @@ class ServeEngine:
         stats.n_prefill_tokens += len(req.prompt)
         stats.n_tokens += 1                   # the prefill's first token
         return caches, first
+
+    def _fresh_cache(self, batch: int):
+        return place_caches(init_cache(self.cfg, batch, self.cache_len,
+                                       self.device),
+                            self.cfg, self.plan, self.mesh)
 
     @staticmethod
     def _finish_if_done(slots, s: int, tokens, pos, done, stats,

@@ -8,7 +8,8 @@ executor cache_tag)``, the content keys the scoring pipeline uses, so a
 plan is never served to an environment it was not tuned for.
 ``ComParTuner(registry=...)`` registers the fused plan after every sweep;
 the serving CLI (``python -m repro_torch.launch.serve --registry-db ...``)
-looks plans up.  The port is meshless: the mesh column reads ``"local"``.
+looks plans up.  The mesh column holds the plan's ``MeshSpec`` mid
+(``"local"`` for a meshless plan).
 
 ``lookup`` resolves the exact key first and then falls back to the
 *nearest traffic shape* of the same (arch, kind, mesh[, cache_tag]):
@@ -31,8 +32,8 @@ from typing import Dict, List, Optional, Union
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core.backends.scheduler import shape_key
-from repro_torch.core.combinator import require_meshless
 from repro_torch.core.db import SweepDB
+from repro_torch.core.meshspec import as_mesh_point
 from repro_torch.core.plan import Plan
 
 
@@ -46,9 +47,12 @@ def serving_shape(batch: int, cache_len: int) -> ShapeConfig:
 
 
 def _mesh_mid(mesh) -> str:
-    """Content key of the mesh: ``"local"``, the port being meshless."""
-    require_meshless(mesh)
-    return "local"
+    """Content key of any mesh-ish value (None, a MeshSpec, a live
+    DeviceMesh, the dict shorthand): the MeshSpec ``mid``, ``"local"`` for
+    the meshless point."""
+    if mesh is None:
+        return "local"
+    return as_mesh_point(mesh).mid
 
 
 @dataclass
@@ -90,8 +94,8 @@ class PlanRegistry:
                  report=None, *, mesh=None,
                  cache_tag: str = "") -> RegistryEntry:
         """Persist ``plan`` under its deployment key.  ``mesh`` defaults to
-        the plan's own (``None`` for a plan the port fused; a mesh
-        raises).  ``report`` is a SweepReport (its summary is stored) or a
+        the plan's own chosen mesh (``fuse_joint``'s argmin); pass the
+        tuner's fixed mesh for unswept sweeps.  ``report`` is a SweepReport (its summary is stored) or a
         JSON-able dict."""
         if mesh is None:
             mesh = plan.mesh
@@ -115,7 +119,8 @@ class PlanRegistry:
     def lookup(self, cfg: ArchConfig, shape: ShapeConfig, mesh=None, *,
                cache_tag: Optional[str] = None,
                nearest: bool = True) -> Optional[RegistryEntry]:
-        """Resolve the plan for ``(cfg, shape)``.
+        """Resolve the plan for ``(cfg, shape, mesh)``: a mesh mismatch is
+        a miss, never a fallback.
 
         Exact key first; then, unless ``nearest=False``, the closest
         registered traffic shape of the same (arch, kind, mesh[, tag]):

@@ -1,8 +1,11 @@
 """Serve-step factories: prefill and decode under a ComParX plan.
 
 Each factory resolves its device first (``"cuda"`` by default; a missing
-card raises) and returns one plain function; the reference also returned
-shardings, which a meshless port does not have.
+card raises) and returns one plain function.  Under a mesh (a
+``DeviceMesh``) the params are DTensors placed by
+``train.step.param_shardings``, the caches by :func:`cache_shardings`
+(:func:`place_caches`), and the logits and tokens each step returns are
+gathered to plain tensors, the same on every rank.
 """
 from __future__ import annotations
 
@@ -11,38 +14,109 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.plan import Plan, build_contexts
 from repro_torch.device import resolve_device
-from repro_torch.models.model import decode_step, forward
+from repro_torch.models.model import cache_specs, decode_step, forward
+from repro_torch.models.params import tree_map
+from repro_torch.runtime.sharding import (Sharding, full, is_device_mesh,
+                                          placements)
 
 
-def make_decode_step(cfg: ArchConfig, plan: Plan, *, device="cuda"):
+def cache_axes(cfg: ArchConfig):
+    """Logical axes mirroring ``models.model.cache_specs``' structure (the
+    reference's)."""
+    def for_kind(kind: str):
+        if kind in ("attn", "attn_moe"):
+            a = ("batch", "kv_seq", "kv_heads", None)
+            return {"k": a, "v": a}
+        if kind == "rec":
+            return {"h": ("batch", "rnn"), "conv": ("batch", None, "rnn")}
+        if kind == "mlstm":
+            return {"C": ("batch", "heads", None, None),
+                    "n": ("batch", "heads", None),
+                    "m": ("batch", "heads"),
+                    "conv": ("batch", None, "rnn")}
+        if kind == "slstm":
+            return {"h": ("batch", "heads", None),
+                    "c": ("batch", "heads", None),
+                    "n": ("batch", "heads", None),
+                    "m": ("batch", "heads", None),
+                    "conv": ("batch", None, "embed")}
+        raise ValueError(kind)
+
+    axes = {}
+    for gi, group in enumerate(cfg.stack_plan()):
+        g = {}
+        for j, kind in enumerate(group.pattern):
+            ax = for_kind(kind)
+            if group.repeats > 1:
+                ax = {k: ("layers",) + tuple(a) for k, a in ax.items()}
+            g[f"b{j}"] = ax
+        axes[f"g{gi}"] = g
+    return axes
+
+
+def cache_pspecs(cfg: ArchConfig, batch: int, smax: int, plan: Plan,
+                 mesh=None):
+    """Per-segment pspec tree of the decode caches."""
+    ctxs = build_contexts(cfg, plan, mesh)
+    specs = cache_specs(cfg, batch, smax)
+    return {seg: tree_map(lambda a, s: ctxs[seg].rules.pspec(a, s.shape),
+                          seg_axes, specs[seg])
+            for seg, seg_axes in cache_axes(cfg).items()}
+
+
+def cache_shardings(cfg: ArchConfig, shape, plan: Plan, mesh=None):
+    """The reference's: cache pspecs at ``shape`` (batch x cache length),
+    as ``Sharding``s on a DeviceMesh."""
+    ps = cache_pspecs(cfg, shape.global_batch, shape.seq_len, plan, mesh)
+    if not is_device_mesh(mesh):
+        return ps
+    return tree_map(lambda p: Sharding(mesh, placements(mesh, p)), ps)
+
+
+def place_caches(caches, cfg: ArchConfig, plan: Plan, mesh):
+    """Fresh caches (``init_cache``) as DTensors by the segments' rules;
+    unchanged without a mesh."""
+    if mesh is None:
+        return caches
+    ctxs = build_contexts(cfg, plan, mesh)
+    return {seg: tree_map(lambda a, t: ctxs[seg].rules.distribute(t, a),
+                          seg_axes, caches[seg])
+            for seg, seg_axes in cache_axes(cfg).items()}
+
+
+def make_decode_step(cfg: ArchConfig, plan: Plan, *, device="cuda",
+                     mesh=None):
     """Returns serve_step(params, caches, tokens, pos) ->
     (next_tokens, logits, caches); greedy."""
     resolve_device(device)
-    ctxs = build_contexts(cfg, plan)
+    ctxs = build_contexts(cfg, plan, mesh)
 
     @torch.no_grad()
     def serve_step(params, caches, tokens, pos):
         logits, caches = decode_step(params, caches, tokens, pos, cfg, ctxs)
+        logits = full(logits)
         return torch.argmax(logits, dim=-1), logits, caches
 
     return serve_step
 
 
-def make_prefill(cfg: ArchConfig, plan: Plan, *, device="cuda"):
+def make_prefill(cfg: ArchConfig, plan: Plan, *, device="cuda", mesh=None):
     """Full-sequence forward (prefill compute shape). Returns
-    prefill(params, batch) -> logits (B,S,V) f32."""
+    prefill(params, batch) -> logits (B,S,V) f32 (gathered under a
+    mesh)."""
     resolve_device(device)
-    ctxs = build_contexts(cfg, plan)
+    ctxs = build_contexts(cfg, plan, mesh)
 
     @torch.no_grad()
     def prefill(params, batch):
         logits, _ = forward(params, batch, cfg, ctxs)
-        return logits
+        return full(logits)
 
     return prefill
 
 
-def make_prefill_cache(cfg: ArchConfig, plan: Plan, *, device="cuda"):
+def make_prefill_cache(cfg: ArchConfig, plan: Plan, *, device="cuda",
+                       mesh=None):
     """The serving engine's prefill segment: consume a prompt into a
     decode cache.
 
@@ -58,7 +132,7 @@ def make_prefill_cache(cfg: ArchConfig, plan: Plan, *, device="cuda"):
     ``caches`` a fresh ``init_cache`` tree (filled in place).
     """
     resolve_device(device)
-    ctxs = build_contexts(cfg, plan)
+    ctxs = build_contexts(cfg, plan, mesh)
 
     @torch.no_grad()
     def prefill(params, caches, prompt):
@@ -66,6 +140,7 @@ def make_prefill_cache(cfg: ArchConfig, plan: Plan, *, device="cuda"):
         for i in range(prompt.shape[1]):
             logits, caches = decode_step(params, caches, prompt[:, i], i,
                                          cfg, ctxs)
+        logits = full(logits)
         return torch.argmax(logits, dim=-1), logits, caches
 
     return prefill

@@ -414,7 +414,10 @@ def test_executor_specs_roundtrip_and_refuse_a_mesh():
     back = executor_from_spec(spec)
     assert (back.device.type, back.repeats, back.timeout_s) == ("cpu", 3, 9)
     assert back.cache_tag == wc.cache_tag
-    with pytest.raises(NotImplementedError, match="item 4"):
+    # a fixed mesh travels as its MeshSpec and is rebuilt by the scoring
+    # process, which refuses one it cannot build (a 2-device mesh, here)
+    from repro_torch.core.meshspec import MeshUnsatisfiable
+    with pytest.raises(MeshUnsatisfiable, match="needs 2"):
         executor_from_spec(dict(executor_to_spec(DryRunExecutor()),
                                 mesh={"axes": [["data", 2]]}))
     for ex in (SleepExecutor(sleep_s=1.0), CrashExecutor()):

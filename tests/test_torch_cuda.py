@@ -939,3 +939,102 @@ def test_cuda_wallclock_spec_scored_by_the_server(dev, tmp_path):
         [("done", False), ("done", True)], outs
     assert outs[0].cost["total_s"] > 0
     assert stats["n_compiled"] == 1 and stats["n_cache_hits"] == 1
+
+
+# --- the ops' sharding rules on a one-card NCCL mesh ---------------------------
+
+@pytest.fixture
+def nccl_mesh(dev):
+    """A (1, 1) ``data x model`` DeviceMesh of a world-size-1 NCCL group
+    (NCCL puts no two ranks on one card), destroyed after the test."""
+    from repro_torch.launch.mesh import destroy_group, device_mesh
+    try:
+        yield device_mesh((1, 1), ("data", "model"), "cuda")
+    finally:
+        destroy_group()
+
+
+def _dt(t, mesh, placements):
+    from repro_torch.runtime.sharding import Sharding, distribute
+    return distribute(t, Sharding(mesh, tuple(placements)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_op_rules_on_nccl_mesh_run_the_kernels(nccl_mesh, dtype):
+    """Each kernel op handed DTensors (batch on ``data``, heads on
+    ``model``, and a layout it must gather) runs its hand kernel on the
+    local shard: the result equals the meshless kernel call, one launch
+    per call, and the op's backward runs through the placements."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.runtime.sharding import full
+    rng = np.random.default_rng(0)
+    dev = torch.device("cuda")
+    mesh = nccl_mesh
+    bh = (Shard(0), Shard(2))
+    q, k, v = (_t(rng, (2, 256, h, 128), dtype, dev) for h in (8, 2, 2))
+    reset_launches()
+    got = ops.flash_attention(*(_dt(t, mesh, bh) for t in (q, k, v)))
+    assert isinstance(got, DTensor) and LAUNCHES["flash_attention"] == 1
+    _close(full(got), ops.flash_attention(q, k, v), dtype)
+    # sequence-sharded K/V: gathered to the kernel's whole sequence
+    got = ops.flash_attention(_dt(q, mesh, bh),
+                              *(_dt(t, mesh, (Shard(1), Replicate()))
+                                for t in (k, v)))
+    _close(full(got), ops.flash_attention(q, k, v), dtype)
+    qg = _dt(q.clone().requires_grad_(), mesh, bh).requires_grad_()
+    ops.flash_attention(qg, _dt(k, mesh, bh), _dt(v, mesh, bh)).sum().backward()
+    assert qg.grad is not None and torch.isfinite(full(qg.grad)).all()
+
+    q1 = _t(rng, (2, 8, 128), dtype, dev)
+    kc, vc = (_t(rng, (2, 512, 2, 128), dtype, dev) for _ in range(2))
+    reset_launches()
+    with torch.no_grad():
+        got = ops.flash_decode(_dt(q1, mesh, (Shard(0), Shard(1))),
+                               _dt(kc, mesh, (Shard(0), Shard(1))),
+                               _dt(vc, mesh, (Shard(0), Shard(2))), 300)
+    assert LAUNCHES["flash_decode"] == 1
+    _close(full(got), ops.flash_decode(q1, kc, vc, 300), dtype)
+
+    la = -torch.rand((2, 300, 64), generator=torch.Generator().manual_seed(1)
+                     ).to(dev)
+    b = _t(rng, (2, 300, 64), torch.float32, dev)
+    got = ops.rglru(_dt(la, mesh, (Shard(0), Shard(2))),
+                    _dt(b, mesh, (Shard(0), Shard(2))))
+    torch.testing.assert_close(full(got), ops.rglru(la, b), atol=1e-5,
+                               rtol=1e-4)
+
+    qm, km, vm = (_t(rng, (2, 4, 256, 64), torch.float32, dev) * 0.1
+                  for _ in range(3))
+    li, lf = (_t(rng, (2, 4, 256), torch.float32, dev) for _ in range(2))
+    lf = torch.nn.functional.logsigmoid(lf)
+    pl = (Shard(0), Shard(1))
+    got = ops.mlstm_chunkwise(*(_dt(t, mesh, pl)
+                                for t in (qm, km, vm, li, lf)))
+    torch.testing.assert_close(full(got),
+                               ops.mlstm_chunkwise(qm, km, vm, li, lf),
+                               atol=5e-4, rtol=5e-3)
+
+
+def test_meshed_prefill_and_engine_on_nccl_mesh(nccl_mesh):
+    """granite at smoke width on the card's (1, 1) mesh, ``tensor_par``,
+    ``cuda`` plan: prefill logits equal the meshless run's, the engine's
+    batched streams equal its sequential ones."""
+    from repro_torch.core.plan import segment_rules
+    from repro_torch.models.params import place_params
+    cfg = get_arch("granite-8b").smoke()
+    plan = uniform_plan(cfg, "tensor_par", clause=SegmentClause(kernel="cuda"))
+    params = init_params(model_specs(cfg), torch.Generator().manual_seed(0))
+    placed = place_params(params, model_specs(cfg),
+                          segment_rules(cfg, plan, nccl_mesh))
+    toks = torch.randint(0, cfg.vocab_size, (2, 64),
+                         generator=torch.Generator().manual_seed(1)).cuda()
+    with torch.no_grad():
+        want = make_prefill(cfg, plan)(params, {"tokens": toks})
+        got = make_prefill(cfg, plan, mesh=nccl_mesh)(placed,
+                                                      {"tokens": toks})
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-5)
+    eng = ServeEngine(cfg, plan, capacity=4, cache_len=64, params=placed,
+                      mesh=nccl_mesh)
+    reqs = [Request(f"r{i}", tuple(range(1, 4 + i)), 4) for i in range(5)]
+    a, b = eng.run(reqs), eng.run(reqs, max_active=1)
+    assert all(a[r.rid].tokens == b[r.rid].tokens for r in reqs)

@@ -64,6 +64,14 @@ def test_probe_covers_the_backends_and_examples(probe):
          ("compar_sweep_json", "train_e2e")} <= set(probe["names"])
 
 
+def test_probe_covers_the_mesh_modules(probe):
+    """The meshes and sharding rules import ``torch.distributed`` (allowed)
+    and neither jax nor the reference package."""
+    assert {"repro_torch.runtime.sharding", "repro_torch.core.meshspec",
+            "repro_torch.launch.mesh"} <= set(probe["names"])
+    assert probe["bad"] == []
+
+
 def test_chip_smoke_fails_without_card(probe):
     if torch.cuda.is_available():
         pytest.skip("this machine has a card; the test is for one without")

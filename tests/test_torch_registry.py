@@ -11,6 +11,7 @@ import itertools
 import json
 
 import pytest
+from repro.core.meshspec import MeshSpec as JMeshSpec
 
 from repro.configs import get_arch as jget_arch
 from repro.core.db import SweepDB as JSweepDB
@@ -59,8 +60,12 @@ def test_registry_roundtrip_byte_identical_plan(tmp_path):
     # the registry shares its file with the score cache
     assert PlanRegistry(SweepDB(str(tmp_path / "reg.db"))).lookup(
         cfg, shape) is not None
-    with pytest.raises(NotImplementedError, match="item 4"):
-        reg.lookup(cfg, shape, {"data": 2})
+    # a plan is keyed by its mesh: another mesh is a miss, never a
+    # fallback, and a plan registered for a mesh is found under it
+    assert reg.lookup(cfg, shape, {"data": 2}) is None
+    reg.register(cfg, shape, _plan(cfg), mesh={"data": 2}, cache_tag="dry")
+    e2 = reg.lookup(cfg, shape, {"data": 2})
+    assert e2.mesh_mid == JMeshSpec.of(data=2).mid != "local"
 
 
 def test_lookups_match_reference(tmp_path):

@@ -247,7 +247,8 @@ def test_submit_refuses_what_this_host_cannot_run(server):
     for init, what in ((cuda, "DeviceUnsatisfiable"),
                        ({**_dry_init(), "executor": {
                            **_dry_init()["executor"],
-                           "mesh": {"axes": [["data", 2]]}}}, "item 4")):
+                           "mesh": {"axes": [["data", 2]]}}},
+                        "MeshUnsatisfiable")):
         with pytest.raises(urllib.error.HTTPError) as ei:
             _post(server.url, {"v": WIRE_VERSION, "run": "n",
                                "init": init, "jobs": []})
@@ -582,5 +583,8 @@ def test_compar_sweep_json_runs_on_the_cpu(tmp_path, monkeypatch,
             srv.close()
         assert _plan_bytes(out["plan2"]) == _plan_bytes(ref["plan2"])
         assert out["report"].n_scored == srv.stats()["n_compiled"] > 0
-    with pytest.raises(NotImplementedError, match="item 4"):
-        compar_sweep_json.main(EXAMPLE_ARGV + ["--mesh-space"])
+    # the topology axis: local against a world-size-1 data ring, made
+    # and destroyed by the example
+    out = compar_sweep_json.main(EXAMPLE_ARGV + ["--mesh-space"])
+    assert out["report"].n_mesh_points == 2
+    assert out["plan2"].mesh == out["plan"].mesh is not None

@@ -149,8 +149,12 @@ def test_sweep_spec_maps_reference_kernels_and_refuses_later_axes(tmp_path):
     plan = {"provider": "fsdp", "flags": [],
             "clause": vars(JClause(kernel="pallas"))}
     assert TC.Combination.from_json(plan).clause.kernel == "cuda"
-    with pytest.raises(NotImplementedError, match="item 4"):
-        TC.SweepSpec.from_json({"meshes": [None]})
+    # the mesh axis is ported: its points read and write as the reference's
+    meshes = {"meshes": [None, {"data": 2, "model": 2}]}
+    tspec = TC.SweepSpec.from_json(meshes)
+    assert [m.key() for m in tspec.meshes] == ["local", "data2xmodel2[any]"]
+    assert tspec.to_json()["meshes"] == \
+        JC.SweepSpec.from_json(meshes).to_json()["meshes"]
     # the kernel axis is ported (tests/test_torch_autotune.py): its
     # kernel names map too
     assert TC.SweepSpec.from_json({"kernels": {"kernel": ["xla"]}}
@@ -171,8 +175,18 @@ def test_row_and_effective_cids_follow_reference_contract():
                             ) == JC.effective_cid(
         jc, rel, "local", JC.GlobalKnobs(microbatches=2),
         frozenset({"microbatches"}))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        TC.mapping_key(None, {"data": 2}, c, None)
+    # under a mesh point the mapping key is the reference's, byte for byte
+    from repro.core.meshspec import MeshSpec as JMeshSpec
+    from repro_torch.core.meshspec import MeshSpec
+    tcfg, jcfg = get_arch("granite-8b").smoke(), jget_arch("granite-8b").smoke()
+    for tseg, jseg in zip(fragment(tcfg), jfragment(jcfg)):
+        for prov in ("tensor_par", "fsdp"):
+            tc = TC.Combination(prov, frozenset(), SegmentClause())
+            jc = JC.Combination(prov, frozenset(), JClause())
+            assert TC.mapping_key(tcfg, MeshSpec.of(data=2, model=2), tc,
+                                  tseg) == JC.mapping_key(
+                jcfg, JMeshSpec.of(data=2, model=2), jc, jseg) != "local"
+    assert TC.mapping_key(None, None, c, None) == "local"
 
 
 # --- cost model ----------------------------------------------------------------
@@ -274,9 +288,16 @@ def test_fusion_matches_reference(seed):
     (jb, jtot), (tb, ttot) = JF.best_uniform(jcfg, jt), \
         TF.best_uniform(tcfg, tt)
     assert _plan_key(tb) == _plan_key(jb) and ttot == jtot
-    with pytest.raises(NotImplementedError, match="item 4"):
-        TF.fuse_joint(tcfg, tshape, None, tper, [t for _, t in kn],
-                      mesh_points=[None])
+    # the mesh axis: one local point fuses the same plan, tagged with it
+    from repro.core.meshspec import LOCAL as JLOCAL
+    from repro_torch.core.meshspec import LOCAL
+    jm = JF.fuse_joint(jcfg, jshape, None, {JLOCAL.mid: jper},
+                       [j for j, _ in kn], mesh_points=[JLOCAL])
+    tm = TF.fuse_joint(tcfg, tshape, None, {LOCAL.mid: tper},
+                       [t for _, t in kn], mesh_points=[LOCAL])
+    assert _plan_key(tm) == _plan_key(jm) == _plan_key(tp)
+    assert tm.mesh == LOCAL and tm.meta["per_mesh_total_s"] == \
+        jm.meta["per_mesh_total_s"]
 
 
 # --- timer: segment programs on the same weights and inputs ----------------------
@@ -563,18 +584,47 @@ def test_op_counter_counts_every_product():
             assert cnt.bytes > 0, name
 
 
-def test_later_axes_raise_naming_their_roadmap_item():
-    """Only what is still pending raises: meshes (item 4).  The process and
-    remote backends are held in tests/test_torch_{backends,remote,faults}
-    .py; the kernel axis, the lint, the registry and the machine model in
-    tests/test_torch_{autotune,analysis,registry,machine}.py."""
+def test_later_axes_raise_naming_their_roadmap_item(tmp_path):
+    """Only what is still pending raises: the sharded model paths (item
+    4(b)), ``decode_shardmap`` and ``moe_dispatch="a2a"`` under a mesh.
+    The mesh axis itself runs: a point this process cannot build (a
+    2-device point, one rank) fails its rows as transient and the plan
+    takes the local point; a fixed mesh it cannot build is refused.  The
+    mesh axis is held in tests/test_torch_mesh_axis.py, the meshes
+    themselves in tests/test_torch_{sharding,distributed}.py."""
+    from repro_torch.core.meshspec import LOCAL, MeshUnsatisfiable
+    from repro_torch.core.plan import uniform_plan
+    from repro_torch.launch.mesh import destroy_group, device_mesh
+    from repro_torch.models.model import model_specs
+    from repro_torch.models.params import init_params
+    from repro_torch.serve.engine import ServeEngine
     cfg, shape = get_arch("granite-8b").smoke(), \
         get_shape("train_4k").smoke()
     tuner = ComParTuner(cfg, shape, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tuner.sweep(["fsdp"], mesh_space=[None, {"data": 2}])
-    with pytest.raises(NotImplementedError, match="item 4"):
+    plan, rep = tuner.sweep(["fsdp"], mesh_space=[None, {"data": 2}],
+                            max_flags=0, transient_retries=0)
+    assert plan.mesh == LOCAL and rep.n_mesh_points == 2
+    assert rep.n_failed == rep.n_combinations // 2
+    with pytest.raises(MeshUnsatisfiable, match="needs 2"):
         ComParTuner(cfg, shape, device="cpu", mesh={"data": 2})
+    params = init_params(model_specs(cfg), torch.Generator().manual_seed(0),
+                         "cpu")
+    try:
+        mesh = device_mesh((1, 1), ("data", "model"), "cpu")
+        for clause in (SegmentClause(decode_shardmap=True),):
+            eng = ServeEngine(cfg, uniform_plan(cfg, "tensor_par",
+                                                clause=clause),
+                              params=params, mesh=mesh, device="cpu")
+            with pytest.raises(NotImplementedError, match=r"4\(b\)"):
+                eng.run([{"rid": "a", "prompt": (1, 2), "max_new_tokens": 2}])
+        moe = get_arch("qwen3-moe-30b-a3b").smoke()
+        eng = ServeEngine(moe, uniform_plan(
+            moe, "expert_par", clause=SegmentClause(moe_dispatch="a2a")),
+            mesh=mesh, device="cpu")
+        with pytest.raises(NotImplementedError, match=r"4\(b\)"):
+            eng.run([{"rid": "a", "prompt": (1, 2), "max_new_tokens": 2}])
+    finally:
+        destroy_group()
 
 
 # --- the example -----------------------------------------------------------------
