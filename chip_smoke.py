@@ -43,8 +43,8 @@ phases (each failure exits non-zero and prints no result line):
             then at full width cut to 2 layers, the same prefill under the
             ``"plain"`` plan, compared within a stated bf16 tolerance.
   serve   — ``ServeEngine`` (capacity 8, cache_len 2048, ``"cuda"`` plan)
-            on 8 seeded requests of ~16 prompt tokens (``SERVE_PROMPT``)
-            and 32 new tokens:
+            on 8 seeded requests of ~8 prompt tokens (``SERVE_PROMPT``)
+            and 8 new tokens (``SERVE_NEW``):
             every request completes, the batched run equals the
             ``max_active=1`` run token for token, and the admission prefill
             went through flash-decode.
@@ -61,11 +61,12 @@ phases (each failure exits non-zero and prints no result line):
             pair and of a lower-precision control), and on the mean gap in
             bf16.
   serve-recurrent — ``ServeEngine`` for each recurrent arch at full depth
-            (capacity 8, ``"cuda"`` plan): on 8 seeded requests of ~32
-            prompt tokens and 16 new tokens, every request completes and
+            (capacity 8, ``"cuda"`` plan): on 8 seeded requests of ~8
+            prompt tokens and 8 new tokens, every request completes and
             the batched streams equal the sequential ones; then a long
-            load, 12 requests on the 8 slots, eight of them ~64 prompt
-            tokens and 2000 new (past recurrentgemma's 2048-token window),
+            load, 12 requests on the 8 slots, eight of them ~16 prompt
+            tokens and 2040 new for recurrentgemma (past its 2048-token
+            window), 128 new for xlstm (no window),
             on each arch cut to its first pattern of block kinds
             (recurrentgemma's rec, rec, attn group; xlstm's mlstm x 3,
             slstm):
@@ -89,7 +90,7 @@ phases (each failure exits non-zero and prints no result line):
             the dense layer.
   serve-moe — ``ServeEngine`` on qwen3-moe-30b-a3b at full depth
             (capacity 8, cache_len 2048, ``"cuda"`` plan), 8 seeded
-            requests of 6-10 prompt tokens and 16 new: every request
+            requests of 2-4 prompt tokens and 6 new: every request
             completes, batched == sequential token for token, flash-decode
             launches == 48 x prompt tokens; then the profile of decode
             steps.
@@ -128,9 +129,9 @@ phases (each failure exits non-zero and prints no result line):
             routing), every leaf's grad > 0, the router's included, then
             two steps (loss, aux loss, step ms, peak memory, 4
             flash-attention launches a step); xlstm-125m at full width and depth through
-            ``launch/train.py`` (B=8, S=512, a "cuda" plan file, remat
-            "dots"): 4 steps straight, then 2, a restart from the latest
-            checkpoint and 2 more, whose losses must equal the straight
+            ``launch/train.py`` (B=8, S=256, a "cuda" plan file, remat
+            "dots"): 2 steps straight, then 1, a restart from the latest
+            checkpoint and 1 more, whose losses must equal the straight
             run's bit for bit (mlstm 18 launches a step).
   sweep   — the ComPar sweep (``core/tuner.py``), three sweeps, one JSON
             line each (``{"sweep": "A" | "B" | "C", ...}``).  A: the
@@ -159,7 +160,8 @@ phases (each failure exits non-zero and prints no result line):
             HBM >= 0.5 of it; a second call loads it from the cache.
             autotune: ``sweep(kernel_space="auto", kernel_top_k=2)``,
             wall clock, on granite-8b 8 layers (B=1, S=4096, train),
-            recurrentgemma-2b and xlstm-125m (prefill, S=2048): each op's
+            recurrentgemma-2b (prefill, S=2048) and xlstm-125m (prefill,
+            S=512): each op's
             variant table; each cuda measurement launches its kernel once
             a call, each plain one none, an op's cuda keys carry one
             outcome, each fused schedule is among its segment's
@@ -172,7 +174,8 @@ phases (each failure exits non-zero and prints no result line):
             rows are settled "static" and launch nothing.  registry:
             granite-8b at full width and depth swept at its serving shape
             (capacity 8, cache 2048) with the kernel axis into a registry,
-            then ``launch/serve.py --registry-db`` serves 8 requests
+            then ``launch/serve.py --registry-db`` serves 8 requests of
+            ~4 prompt tokens and 4 new
             (``plan=registry``, batched == sequential, flash-decode 36 x
             prompt tokens under a cuda plan); a lookup at capacity 4
             resolves to ``registry~decode:2048x8``.  The autotuner's top
@@ -181,7 +184,7 @@ phases (each failure exits non-zero and prints no result line):
             its outer median beside sweep A's plain/none.
   backends — the process and remote scoring backends
             (``core/backends/``), one JSON line each (``{"backends": "a"
-            ... "e", ...}``), on stablelm-3b at full width cut to 8 layers,
+            ... "e", ...}``), on stablelm-3b at full width cut to 2 layers,
             train, B=2 at S=2048, the JSON example's providers and
             microbatches {1, 2} with remat {none, dots} x kernel {plain,
             cuda}.  a: the dry run (1 layer) on 2 process workers against
@@ -191,10 +194,12 @@ phases (each failure exits non-zero and prints no result line):
             kernel launches (carried back at its shutdown) equal the
             in-process run's, flash-attention at D=80 above 0.  c: a
             FaultPlan kills the worker while it times the cuda stack job:
-            requeued to a fresh worker and done, the card's free memory
+            requeued to a fresh worker and done (the cell at 8 layers,
+            so that the job still times when the kill comes), the card's
+            free memory
             back within 64 MiB after close(), the parent's CUDA sound.  d:
             ``python -m repro_torch.core.backends.server --workers 1`` as
-            a subprocess: a client sweep (2 layers), all rows done; a
+            a subprocess: a client sweep (1 layer), all rows done; a
             second client with a fresh DB scores nothing server-side, same
             plan; a third through a seeded ChaosProxy, same plan; the
             server killed, a sweep with remat "full" added and
@@ -203,20 +208,38 @@ phases (each failure exits non-zero and prints no result line):
             --backend process --layers 1``, the reference's spec (block_q
             16) with kernel {plain, cuda}: rc 0, no failed row, the
             Continue run scores nothing; and
-            ``python -m repro_torch.examples.train_e2e --full --steps 6``
-            (finite losses, resumed from step 3).
+            ``python -m repro_torch.examples.train_e2e --full --steps 4``
+            (finite losses, resumed from step 2).
   mesh    — the port on a ``torch.distributed`` ``DeviceMesh``: a
             world-size-1 NCCL group and a (1, 1) ``data x model`` mesh
             (NCCL puts no two ranks on one card), one JSON line per part
-            (``{"mesh": "group" | "prefill" | "serve" | "train" |
-            "sweep", ...}``).  prefill: granite-8b at full width and depth
+            (``{"mesh": "group" | "prefill" | "serve" | "a2a" |
+            "shardmap" | "train" | "sweep" | "dryrun", ...}``).  prefill: granite-8b at full width and depth
             placed by the ``tensor_par`` and then the ``fsdp`` plan's rules
             (leaves counted by placement), B=1, S=2048, ``"cuda"`` plan:
             logits held to the meshless run's (PREFILL_ATOL/RTOL),
             exactly 36 flash-attention launches.  serve: a meshed
-            ``ServeEngine`` on 8 requests of ~8 prompt tokens and 8 new:
+            ``ServeEngine`` on 8 requests of ~3 prompt tokens and 4 new:
             batched == sequential, exactly 36 flash-decode launches per
-            prompt token.  train: granite-8b cut to 2 layers, S=4096,
+            prompt token.  a2a: qwen3-moe-30b-a3b at full width cut to 4
+            layers, prefill B=1, S=2048 under ``expert_par`` with
+            ``moe_dispatch="a2a"`` against the same weights meshless and
+            sorted (the expert-set agreement, a reading; the logits with
+            the sorted routing replayed, PREFILL_ATOL/RTOL; 4
+            flash-attention launches), then 2 layers' step-0 grads in f32
+            (TRAIN_GRAD_REL_L2).  shardmap: one granite-8b attention layer,
+            B=8, a 2048 cache, 64 positions of ``decode_shardmap`` (rules
+            with ``kv_seq`` on ``model``) against the meshless flash-decode
+            path: bf16 tolerance, caches equal, no flash-decode launch on
+            the sharded side.  dryrun: ``python -m
+            repro_torch.launch.dryrun --device cuda`` in three subprocesses
+            at once (a fake group cannot share a process with the NCCL
+            group): granite-8b decode_32k on (16, 16) and (2, 16, 16) under
+            the default plan and on (16, 16) with ``decode_shardmap``,
+            qwen3-moe-30b-a3b decode_32k with the a2a dispatch; each
+            cell's status and collective bytes by kind, the granite cells
+            held to DRYRUN_GATHER_MIN_BYTES (without) and
+            DRYRUN_DSM_MAX_BYTES (with).  train: granite-8b cut to 2 layers, S=4096,
             ``tensor_par``, remat dots, step-0 grads on the mesh against
             meshless per leaf (TRAIN_GRAD_REL_L2, f32 at 1 layer, bf16 at
             2), then two AdamW steps on the placed params.  sweep:
@@ -289,15 +312,22 @@ PREFILL_REC_ATOL_PER_STD = 5e-2
 # gap, to a fixed 0.1 of the logits' std (a gross check).
 XLSTM_F32_ATOL_PER_STD = 1e-3
 XLSTM_BF16_MEAN_PER_STD = 0.1
-# serve-recurrent's long load: 12 requests on 8 slots.  Four short ones
-# (~32 prompt tokens, 16 new) free their slots early; eight long ones (~64
-# prompt tokens, SERVE_LONG_NEW new) run past recurrentgemma-2b's 2048-token
-# window, so its KV ring buffers wrap during batched decode; the last long
-# one repeats the first one's prompt in a recycled slot.
-SERVE_LONG_NEW = 2000
+# serve-recurrent: the engine on SERVE_REC_N requests of ~SERVE_REC_PROMPT
+# prompt tokens and SERVE_REC_NEW new; then the long load: 12 requests on
+# 8 slots.  Four short ones (~SERVE_REC_PROMPT prompt tokens,
+# SERVE_REC_NEW new) free their slots early; eight long ones
+# (~SERVE_LONG_PROMPT prompt tokens, SERVE_LONG_NEW[arch] new) run on, for
+# recurrentgemma-2b past its 2048-token window (prompt + new > 2048), so
+# its KV ring buffers wrap during batched decode; xlstm-125m has no window,
+# and its gates (every request complete, the repeat in a recycled slot)
+# hold at any length; the last long one repeats the first one's prompt in
+# a recycled slot.
+SERVE_REC_N, SERVE_REC_PROMPT, SERVE_REC_NEW = 8, 8, 8
+SERVE_LONG_PROMPT = 16
+SERVE_LONG_NEW = {"recurrentgemma-2b": 2040, "xlstm-125m": 128}
 # granite-8b's serve phase: prompts of SERVE_PROMPT +- 1 tokens (each an
-# admission step of B=1 through 36 layers, host-bound), 32 new
-SERVE_PROMPT, SERVE_NEW = 16, 32
+# admission step of B=1 through 36 layers, host-bound), SERVE_NEW new
+SERVE_PROMPT, SERVE_NEW = 8, 8
 # decode past the window against the full-sequence forward, f32, one
 # rec, rec, attn group at full width: f32 on both sides, so the same 1e-3
 # of the logits' std as the xlstm gate, and the rglru kernel's rtol
@@ -307,8 +337,9 @@ WRAP_F32_ATOL_PER_STD, WRAP_F32_RTOL = 1e-3, 1e-4
 # TRAIN_STEPS steps, the first of them the warm-up
 TRAIN_GRANITE_LAYERS, TRAIN_GRANITE_S, TRAIN_STEPS = 8, 4096, 4
 TRAIN_REC_S = 2048                     # recurrentgemma-2b's first group
-# xlstm-125m at full width and depth through launch/train.py
-TRAIN_XLSTM_B, TRAIN_XLSTM_S, TRAIN_XLSTM_STEPS = 8, 512, 4
+# xlstm-125m at full width and depth through launch/train.py (its sLSTM
+# loop is a host loop over S, so S sets the phase's time)
+TRAIN_XLSTM_B, TRAIN_XLSTM_S, TRAIN_XLSTM_STEPS = 8, 256, 2
 # per-leaf relative L2 error of the step-0 grads, "cuda" plan against
 # "plain" plan, same weights and batch.  In f32 the plans differ by the
 # kernels' f32 error only (flash-attention 2e-5): 1e-4.  In bf16 the two
@@ -329,10 +360,10 @@ MOE, KIMI = "qwen3-moe-30b-a3b", "kimi-k2-1t-a32b"
 MOE_S, KIMI_S = 2048, 1024            # prefill-moe sequences, B=1
 MOE_AGREE_MIN = 0.9
 MOE_F32_ATOL_PER_STD, MOE_F32_RTOL = 1e-3, 2e-5
-# serve-moe: 8 requests of 6-10 prompt tokens and 16 new (each decode
-# step reads every expert's weights: ~58 GB, >= 17 ms at 3.35 TB/s; each
-# prompt token is a B=1 admission step, ~0.3 s on the host)
-SERVE_MOE_N, SERVE_MOE_PROMPT, SERVE_MOE_NEW = 8, (6, 10), 16
+# serve-moe: 8 requests of 2-4 prompt tokens and 6 new (each decode step
+# reads every expert's weights: ~58 GB, >= 17 ms at 3.35 TB/s; each prompt
+# token is a B=1 admission step, ~0.3 s on the host)
+SERVE_MOE_N, SERVE_MOE_PROMPT, SERVE_MOE_NEW = 8, (2, 4), 6
 TRAIN_MOE_LAYERS, TRAIN_MOE_S = 2, 4096
 # dense: the remaining dense archs, each served at full depth: prefill at
 # B=1, DENSE_S (starcoder2-3b also at DENSE_LONG_S, past its window); the
@@ -367,24 +398,27 @@ SWEEP_REC_S = 2048
 TUNE_DATASHEET = {"bfloat16": 989e12, "float32": 67e12, "hbm": 3.35e12}
 TUNE_MAX_OVER = 1.05
 TUNE_LEAST = {"bfloat16": 0.3, "hbm": 0.5}
-# the autotuner's cells: wall-clock repeats, the prefill cells' sequence;
+# the autotuner's cells: wall-clock repeats, the prefill cells' sequence
+# (xlstm-125m's, whose prefill is a host loop over S, at TUNE_XLSTM_S);
 # the registry cell: granite-8b's serving shape (capacity 8, cache 2048),
-# served 8 requests of ~8 prompt tokens and 8 new
-TUNE_REPEATS, TUNE_PREFILL_S = 3, 2048
+# served 8 requests of ~4 prompt tokens and 4 new
+TUNE_REPEATS, TUNE_PREFILL_S, TUNE_XLSTM_S = 3, 2048, 512
 TUNE_SERVE_CAPACITY, TUNE_SERVE_CACHE = 8, 2048
-TUNE_SERVE_N, TUNE_SERVE_PROMPT, TUNE_SERVE_NEW = 8, 8, 8
+TUNE_SERVE_N, TUNE_SERVE_PROMPT, TUNE_SERVE_NEW = 8, 4, 4
 # each autotuned op's kernel in LAUNCHES
 TUNE_OP_KERNEL = {"flash_attention": "flash_attention",
                   "flash_decode": "flash_decode",
                   "mlstm_chunkwise": "mlstm", "rglru": "rglru"}
-# backends: stablelm-3b (H 32, KV 32, D 80) at full width cut to 8 layers,
-# train, B=2 at S=2048 (4096 tokens a step: at B=1 the swept
+# backends: stablelm-3b (H 32, KV 32, D 80) at full width cut to 2 layers
+# ((c) at BACKENDS_KILL_LAYERS, so that the killed job is still timing
+# when the kill comes), train, B=2 at S=2048 (4096 tokens a step: at B=1 the swept
 # microbatches=2 point cannot split the batch and fails, as PlanLint's
 # "microbatch" rule says; each microbatch of it is the kernels phase's
 # (1, 32, 2048, 80) flash-attention call), the JSON example's providers
 # and knob axis with remat {none, dots} x kernel {plain, cuda}
 BACKENDS_ARCH, BACKENDS_LAYERS, BACKENDS_B, BACKENDS_S = \
-    "stablelm-3b", 8, 2, 2048
+    "stablelm-3b", 2, 2, 2048
+BACKENDS_KILL_LAYERS = 8
 BACKENDS_SPACE = {"remat": ("none", "dots"), "kernel": ("plain", "cuda")}
 BACKENDS_GLOBALS = {"microbatches": (1, 2)}
 BACKENDS_REPEATS = 3
@@ -397,7 +431,7 @@ BACKENDS_DRY_LAYERS = 1
 BACKENDS_KILL_REPEATS, BACKENDS_KILL_AFTER_S = 30, 1.5
 # (d): the cell's depth for the scoring server (its programs are then not
 # b's, timed twice already), and the seeded chaos schedule in front of it
-BACKENDS_REMOTE_LAYERS = 2
+BACKENDS_REMOTE_LAYERS = 1
 BACKENDS_CHAOS_SEED, BACKENDS_CHAOS_RATE = 7, 0.2
 # (e): the JSON example's depth on the card.  Its spec's block_q 16 splits
 # each head's 2048 queries into 128 chunks that the plain path runs one by
@@ -406,12 +440,34 @@ BACKENDS_CHAOS_SEED, BACKENDS_CHAOS_RATE = 7, 0.2
 BACKENDS_EXAMPLE_LAYERS = 1
 # (e): train_e2e's steps, half of them before the simulated crash (each a
 # step of the real xlstm-125m at B=8, S=64, its sLSTM loop host-bound)
-BACKENDS_E2E_STEPS = 6
+BACKENDS_E2E_STEPS = 4
 # mesh: the engine's requests (~MESH_PROMPT prompt tokens, MESH_NEW new),
 # the train gate's and the sweep's depth and sequence
-MESH_PROMPT, MESH_NEW = 8, 8
+MESH_PROMPT, MESH_NEW = 3, 4
 MESH_TRAIN_LAYERS, MESH_S = 2, 4096
 MESH_POINT = {"data": 1, "model": 1}
+# mesh (a): qwen3-moe-30b-a3b at full width cut in depth (placing copies
+# the weights) for the all-to-all dispatch's prefill at B=1, S=MESH_MOE_S,
+# and its step-0 grads in f32 at MESH_MOE_TRAIN_LAYERS
+MESH_MOE_LAYERS, MESH_MOE_S, MESH_MOE_TRAIN_LAYERS = 4, 2048, 2
+# the a2a dispatch routes in f32 (the reference's), the sorted one in bf16:
+# their expert sets part at near-ties more often than two bf16 plans do
+# (MOE_AGREE_MIN), so the agreement is a reading held only to this gross
+# floor; the pointwise gates are the replayed logits and the f32 grads
+MESH_A2A_AGREE_MIN = 0.5
+# mesh (b): one granite-8b attention layer at full width, B=8, a cache of
+# MESH_DSM_SMAX, MESH_DSM_STEPS positions of decode_shardmap against the
+# meshless flash-decode path
+MESH_DSM_B, MESH_DSM_SMAX, MESH_DSM_STEPS = 8, 2048, 64
+# mesh (c): the dry run's granite-8b decode_32k cells on the fake (16, 16)
+# mesh: without decode_shardmap each layer gathers the kv_seq-split caches
+# (at least one gather of both: 36 x 2 x 480 MiB = 33.75 GiB a device a
+# step); with it no cache is gathered and the collectives stay under
+# DRYRUN_DSM_MAX_BYTES (the LSE combine ~8.6 MiB, the tensor-parallel
+# all-reduces ~8.6 MiB, q's gather ~2.1 MiB)
+DRYRUN_GATHER_MIN_BYTES = 36 * 2 * 480 * 2**20
+DRYRUN_DSM_MAX_BYTES = 64 * 2**20
+DRYRUN_TIMEOUT_S = 600
 
 
 class SmokeFailure(Exception):
@@ -992,7 +1048,8 @@ def _recurrent_kernel_checks(torch, rand, rows, failures):
     long_row.update(_mlstm_timing(torch, q, k, v, li, lf, c))
     rows.append(long_row)
     del q, k, v, li, lf
-    # xlstm-125m's train shape (B=8, S=512): the parity check and times
+    # xlstm-125m's train shape (TRAIN_XLSTM_B, TRAIN_XLSTM_S): the parity
+    # check and times
     B, S = TRAIN_XLSTM_B, TRAIN_XLSTM_S
     q = rand((B, S, H, dh), f32).transpose(1, 2) * dh ** -0.5
     k = rand((B, S, H, dh), f32).transpose(1, 2)
@@ -1455,8 +1512,9 @@ def phase_serve_recurrent(torch, state):
         params = _params(torch, cfg, state)
         eng = ServeEngine(cfg, _plans(cfg)["cuda"], capacity=8,
                           cache_len=2048, params=params)
-        reqs = synthetic_requests(8, cfg.vocab_size, prompt_len=32,
-                                  tokens=16, seed=0)
+        reqs = synthetic_requests(SERVE_REC_N, cfg.vocab_size,
+                                  prompt_len=SERVE_REC_PROMPT,
+                                  tokens=SERVE_REC_NEW, seed=0)
         eng.run(reqs[:1])                               # warm-up
         torch.cuda.synchronize()
         reset_launches()
@@ -1502,11 +1560,11 @@ def _serve_long(torch, full_cfg, full_params):
     eng = ServeEngine(cfg, _plans(cfg)["cuda"], capacity=8, cache_len=2048,
                       params=params)
     long = [dataclasses.replace(r, rid=f"long{i}") for i, r in enumerate(
-        synthetic_requests(7, cfg.vocab_size, prompt_len=64,
-                           tokens=SERVE_LONG_NEW, seed=1))]
+        synthetic_requests(7, cfg.vocab_size, prompt_len=SERVE_LONG_PROMPT,
+                           tokens=SERVE_LONG_NEW[full_cfg.name], seed=1))]
     short = [dataclasses.replace(r, rid=f"short{i}") for i, r in enumerate(
-        synthetic_requests(4, cfg.vocab_size, prompt_len=32, tokens=16,
-                           seed=2))]
+        synthetic_requests(4, cfg.vocab_size, prompt_len=SERVE_REC_PROMPT,
+                           tokens=SERVE_REC_NEW, seed=2))]
     again = dataclasses.replace(long[0], rid="long0-again")
     reqs = long[:4] + short + long[4:] + [again]
     torch.cuda.synchronize()
@@ -1533,6 +1591,10 @@ def _serve_long(torch, full_cfg, full_params):
                  if a != b)
         raise SmokeFailure(f"{cfg.name}: the repeated request's stream "
                            f"differs from the first's at token {n}")
+    if cfg.window_size and longest <= cfg.window_size:
+        raise SmokeFailure(f"{cfg.name}: the long load ({longest} tokens) "
+                           f"does not pass the {cfg.window_size}-token "
+                           f"window")
     log(f"serve {cfg.name} long load: every request complete; long0 (slot "
         f"{first.slot}, step {first.admitted_step}) == long0-again (slot "
         f"{rep.slot}, step {rep.admitted_step}) token for token")
@@ -1601,30 +1663,33 @@ def _free_params(torch, state):
 
 @contextlib.contextmanager
 def _routes(mode=None, store=None):
-    """Each MoE layer's routing through ``models.moe.route``, in call
-    order: ``"record"`` appends every call's expert ids to ``store``;
+    """Each MoE layer's routing through ``models.moe.route`` (and the
+    all-to-all dispatch's ``route_f32``), in call order: ``"record"`` appends every call's expert ids to ``store``;
     ``"replay"`` makes every call take ``store``'s ids in turn (gates from
     this run's probabilities at those experts, normalized as the router
     does), so that two plans route alike and differ only by their
     kernels."""
     from repro_torch.models import moe
-    route = moe.route
+    route, route_f32 = moe.route, moe.route_f32
     replay = iter(store) if mode == "replay" else None
 
-    def wrapped(router, xf, k):
-        probs, gates, idx = route(router, xf, k)
-        if mode == "record":
-            store.append(idx.clone())
-        elif mode == "replay":
-            idx = next(replay)
-            gates = probs.gather(-1, idx)
-            gates = gates / gates.sum(dim=-1, keepdim=True).clamp_min(1e-9)
-        return probs, gates, idx
-    moe.route = wrapped
+    def wrap(fn):
+        def wrapped(router, xf, k):
+            probs, gates, idx = fn(router, xf, k)
+            if mode == "record":
+                store.append(idx.clone())
+            elif mode == "replay":
+                idx = next(replay).reshape(idx.shape)
+                gates = probs.gather(-1, idx)
+                gates = gates / gates.sum(dim=-1,
+                                          keepdim=True).clamp_min(1e-9)
+            return probs, gates, idx
+        return wrapped
+    moe.route, moe.route_f32 = wrap(route), wrap(route_f32)
     try:
         yield store
     finally:
-        moe.route = route
+        moe.route, moe.route_f32 = route, route_f32
 
 
 def _agreement(torch, a, b):
@@ -2918,7 +2983,7 @@ def _tune_autotune(torch, state, db):
          ShapeConfig(f"prefill-1x{TUNE_PREFILL_S}", TUNE_PREFILL_S, 1,
                      "prefill")),
         ("xlstm-125m", get_arch("xlstm-125m"),
-         ShapeConfig(f"prefill-1x{TUNE_PREFILL_S}", TUNE_PREFILL_S, 1,
+         ShapeConfig(f"prefill-1x{TUNE_XLSTM_S}", TUNE_XLSTM_S, 1,
                      "prefill")),
     ]
     for label, cfg, shape in cells:
@@ -3381,7 +3446,7 @@ def _backends_kill(torch, state):
                 time.sleep(BACKENDS_KILL_AFTER_S)
             return rule
 
-    cfg, shape = _backends_cell()
+    cfg, shape = _backends_cell(BACKENDS_KILL_LAYERS)
     segs = {s.kind: s for s in fragment(cfg)}
     knobs = GlobalKnobs(microbatches=1)
 
@@ -3672,17 +3737,28 @@ def phase_mesh(torch, state):
             "group_s": time.perf_counter() - t0}
     print(json.dumps(line), flush=True)
     log(f"mesh: {line}")
+    import tempfile
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_")
+    dry = None
     try:
         for part, run, arg in (("prefill", _mesh_prefill, mesh),
+                               ("dryrun start", _dryrun_start, tmp.name),
                                ("serve", _mesh_serve, mesh),
+                               ("a2a", _mesh_a2a, mesh),
+                               ("shardmap", _mesh_shardmap, mesh),
                                ("train", _mesh_train, mesh),
-                               ("sweep", _mesh_sweep, spec)):
+                               ("sweep", _mesh_sweep, spec),
+                               ("dryrun", _dryrun_check, None)):
             t0 = time.perf_counter()
-            run(torch, state, arg)
+            if part == "dryrun start":
+                dry = run(torch, state, arg)
+            else:
+                run(torch, state, dry if part == "dryrun" else arg)
             log(f"mesh: part {part} {time.perf_counter() - t0:.1f}s")
     finally:
         destroy_group()
         left = stop_descendants()
+        tmp.cleanup()
     if left:
         raise SmokeFailure(f"mesh: processes left: {left}")
     log("mesh: group destroyed, no process left")
@@ -3830,16 +3906,18 @@ def _mesh_serve(torch, state, mesh):
         raise SmokeFailure(f"mesh serve: {fail}")
 
 
-def _mesh_grads(torch, cfg, plan, params, batch, mesh):
-    """Step-0 grads of ``plan`` on ``mesh`` against meshless, same weights
-    and batch: (worst per-leaf relative L2, the rows, the losses)."""
+def _mesh_grads(torch, cfg, plan, params, batch, mesh, meshless=None):
+    """Step-0 grads of ``plan`` on ``mesh`` against meshless (under
+    ``meshless``, ``plan`` by default), same weights and batch: (worst
+    per-leaf relative L2, the rows, the losses)."""
     from repro_torch.core.plan import segment_rules
     from repro_torch.models.model import model_specs
     from repro_torch.models.params import (place_params, tree_leaves,
                                            tree_map_with_path)
     from repro_torch.runtime.sharding import full
     from repro_torch.train.step import make_grads, place_batch
-    loss0, _, g0 = make_grads(cfg, plan, device="cuda")(params, batch)
+    loss0, _, g0 = make_grads(cfg, meshless or plan, device="cuda")(
+        params, batch)
     placed = place_params(params, model_specs(cfg),
                           segment_rules(cfg, plan, mesh))
     loss1, _, g1 = make_grads(cfg, plan, device="cuda", mesh=mesh)(
@@ -3909,6 +3987,300 @@ def _mesh_train(torch, state, mesh):
     torch.cuda.empty_cache()
     if fail:
         raise SmokeFailure(f"mesh train: {fail}")
+
+
+def _moe_plan(cfg, dispatch, remat="none"):
+    """qwen3's expert_par plan, "cuda" kernels, ``moe_dispatch``."""
+    from repro_torch.core.plan import uniform_plan
+    from repro_torch.models.context import SegmentClause
+    return uniform_plan(cfg, "expert_par", frozenset(), SegmentClause(
+        remat=remat, kernel="cuda", moe_dispatch=dispatch))
+
+
+def _mesh_a2a(torch, state, mesh):
+    """(a) The all-to-all MoE dispatch on the (1, 1) mesh: qwen3-moe-30b-a3b
+    at full width cut to MESH_MOE_LAYERS, prefill B=1 under ``expert_par``
+    with ``moe_dispatch="a2a"`` (routed in f32, as the reference's)
+    against the same weights meshless and sorted (routed in bf16): the
+    expert-set agreement of the two routings, and the logits with the
+    sorted run's routing replayed in the a2a run (PREFILL_ATOL/RTOL),
+    exactly MESH_MOE_LAYERS flash-attention launches; then the step-0
+    grads of MESH_MOE_TRAIN_LAYERS in f32, a2a on the mesh (its sum over
+    ``model`` a real one-rank NCCL all-reduce) against sorted meshless
+    (TRAIN_GRAD_REL_L2)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.model import model_specs
+    from repro_torch.models.params import init_params
+    from repro_torch.serve.step import make_prefill
+    from repro_torch.train.step import init_train_state
+    _free_params(torch, state)
+    cfg = dataclasses.replace(get_arch(MOE), num_layers=MESH_MOE_LAYERS)
+    params = init_params(model_specs(cfg), torch.Generator().manual_seed(0),
+                         "cuda")
+    gen = torch.Generator().manual_seed(7)
+    tokens = torch.randint(0, cfg.vocab_size, (1, MESH_MOE_S),
+                           generator=gen).cuda()
+    plan = _moe_plan(cfg, "a2a")
+    r_sorted, r_a2a = [], []
+    with torch.no_grad():
+        with _routes("record", r_sorted):
+            want = make_prefill(cfg, _moe_plan(cfg, "sorted"))(
+                params, {"tokens": tokens})
+        placed, counts = _placed(cfg, params, plan, mesh)
+        fn = make_prefill(cfg, plan, mesh=mesh)
+        fn(placed, {"tokens": tokens[:, :128]})              # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        with _routes("record", r_a2a):
+            got = fn(placed, {"tokens": tokens})
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        with _routes("replay", list(r_sorted)):
+            forced = fn(placed, {"tokens": tokens})
+    state.setdefault("launches", {})[f"mesh a2a {MOE}"] = launches
+    per_layer, agree = _agreement(torch, r_sorted, r_a2a)
+    diff = (forced - want).abs()
+    fail = []
+    ok = bool(torch.isfinite(got).all()) and bool(
+        (diff <= PREFILL_ATOL + PREFILL_RTOL * want.abs()).all())
+    if not ok:
+        fail.append(f"a2a logits with the sorted routing replayed differ "
+                    f"from sorted meshless (max {float(diff.max()):.4g})")
+    if min(per_layer) < MESH_A2A_AGREE_MIN:
+        fail.append(f"expert sets agree {min(per_layer):.4f} < "
+                    f"{MESH_A2A_AGREE_MIN}")
+    if launches["flash_attention"] != cfg.num_layers:
+        fail.append(f"{launches['flash_attention']} flash-attention "
+                    f"launches, expected {cfg.num_layers}")
+    del placed, got, forced, want, params
+    torch.cuda.empty_cache()
+    # step-0 grads, f32, a2a on the mesh against sorted meshless
+    cfg2 = dataclasses.replace(get_arch(MOE), num_layers=MESH_MOE_TRAIN_LAYERS,
+                               dtype="float32")
+    p2, _ = init_train_state(cfg2, _moe_plan(cfg2, "sorted"),
+                             torch.Generator().manual_seed(0), "cuda")
+    batch = _train_data(cfg2, MESH_MOE_S).batch_at(0)
+    reset_launches()
+    worst, rows, losses = _mesh_grads(
+        torch, cfg2, _moe_plan(cfg2, "a2a"), p2, batch, mesh,
+        meshless=_moe_plan(cfg2, "sorted"))
+    bound = TRAIN_GRAD_REL_L2["float32"]
+    if not worst < bound:
+        fail.append(f"grads rel L2 {worst:.3g} >= {bound}")
+    del p2
+    torch.cuda.empty_cache()
+    line = {"mesh": "a2a", "arch": cfg.name, "layers": cfg.num_layers,
+            "B": 1, "S": MESH_MOE_S, "provider": "expert_par",
+            "leaves_by_placement": counts, "prefill_ms": dt * 1e3,
+            "expert_sets_agree_per_layer": per_layer,
+            "tokens_agreeing_every_layer": float(agree.float().mean()),
+            "replayed_max_abs_diff": float(diff.max()),
+            "replayed_mean_abs_diff": float(diff.mean()),
+            "atol": PREFILL_ATOL, "rtol": PREFILL_RTOL,
+            "launches": launches,
+            "grads": {"layers": MESH_MOE_TRAIN_LAYERS, "dtype": "float32",
+                      "worst_rel_l2": worst, "bound": bound,
+                      "losses": losses, "per_leaf": rows},
+            "gates_failed": fail}
+    print(json.dumps(line), flush=True)
+    log(f"mesh a2a: agree {min(per_layer):.4f}, replayed max "
+        f"{float(diff.max()):.4g}, grads {worst:.3g}; "
+        f"{'ok' if not fail else 'FAIL'}")
+    if fail:
+        raise SmokeFailure(f"mesh a2a: {fail}")
+
+
+def _mesh_shardmap(torch, state, mesh):
+    """(b) ``decode_shardmap`` on the (1, 1) mesh: one granite-8b attention
+    layer at full width, rules with ``kv_seq`` on ``model`` (as
+    tests/test_optimizations.py's), MESH_DSM_STEPS positions at B=8 of a
+    MESH_DSM_SMAX cache against the same layer meshless on the
+    ``kernel="cuda"`` path (flash-decode): outputs at the flash-decode
+    bf16 tolerance, caches exactly equal, flash-decode launched once a
+    position on the meshless side and never on the sharded one."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.plan import build_contexts
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import attention as A
+    from repro_torch.models.context import ModelContext, SegmentClause
+    from repro_torch.models.params import init_params
+    from repro_torch.runtime.sharding import full, mesh_scope
+    cfg = get_arch("granite-8b")
+    p = init_params(A.attn_specs(cfg), torch.Generator().manual_seed(0),
+                    "cuda")
+    B, Smax, N = MESH_DSM_B, MESH_DSM_SMAX, MESH_DSM_STEPS
+    KV, D = cfg.num_kv_heads, cfg.head_dim_
+    rules = build_contexts(cfg, _mesh_plan(cfg, "tensor_par"), mesh)[
+        "g0"].rules.merged({"kv_seq": "model", "kv_heads": None})
+    ctx0 = ModelContext(clause=SegmentClause(kernel="cuda"))
+    ctx1 = ModelContext(rules=rules, clause=SegmentClause(
+        kernel="cuda", decode_shardmap=True))
+    axes = ("batch", "kv_seq", "kv_heads", None)
+
+    def zeros():
+        return torch.zeros(B, Smax, KV, D, dtype=torch.bfloat16,
+                           device="cuda")
+    c0 = {"k": zeros(), "v": zeros()}
+    c1 = {n: rules.distribute(zeros(), axes) for n in ("k", "v")}
+    if not A._seq_sharded(ctx1, c1):
+        raise SmokeFailure("mesh shardmap: the rules do not split kv_seq")
+    gen = torch.Generator().manual_seed(11)
+    xs = (torch.randn(N, B, cfg.d_model, generator=gen) * 0.3).to(
+        torch.bfloat16).cuda()
+    worst, fd, t = 0.0, [0, 0], [0.0, 0.0]
+    ok = True
+    with torch.no_grad():
+        for pos in range(N):
+            reset_launches()
+            t0 = time.perf_counter()
+            y0, c0 = A.attn_decode(p, xs[pos], c0, pos, cfg, ctx0)
+            torch.cuda.synchronize()
+            t[0] += time.perf_counter() - t0
+            fd[0] += LAUNCHES["flash_decode"]
+            reset_launches()
+            t0 = time.perf_counter()
+            with mesh_scope(True):
+                y1, c1 = A.attn_decode(p, xs[pos], c1, pos, cfg, ctx1)
+                y1 = full(y1)
+            torch.cuda.synchronize()
+            t[1] += time.perf_counter() - t0
+            fd[1] += LAUNCHES["flash_decode"]
+            err, good = max_err(torch, y1, y0, "bfloat16")
+            worst, ok = max(worst, err), ok and good
+    same = all(torch.equal(full(c1[n]), c0[n]) for n in ("k", "v"))
+    state.setdefault("launches", {})["mesh shardmap granite-8b"] = {
+        **{k: 0 for k in LAUNCHES}, "flash_decode": fd[0] + fd[1]}
+    fail = []
+    if not ok:
+        fail.append(f"outputs differ past the bf16 tolerance (max "
+                    f"{worst:.4g})")
+    if not same:
+        fail.append("caches differ")
+    if fd != [N, 0]:
+        fail.append(f"flash-decode launches {fd}, expected [{N}, 0]")
+    line = {"mesh": "shardmap", "arch": cfg.name, "B": B, "Smax": Smax,
+            "positions": N, "max_abs_err": worst, "tol": TOL["bfloat16"],
+            "caches_equal": same, "flash_decode_launches": {
+                "meshless": fd[0], "shardmap": fd[1]},
+            "ms_per_position": {"meshless_flash_decode": t[0] / N * 1e3,
+                                "shardmap": t[1] / N * 1e3},
+            "gates_failed": fail}
+    print(json.dumps(line), flush=True)
+    log(f"mesh shardmap: max_abs_err {worst:.4g}, caches equal {same}; "
+        f"{'ok' if not fail else 'FAIL'}")
+    del p, c0, c1
+    torch.cuda.empty_cache()
+    if fail:
+        raise SmokeFailure(f"mesh shardmap: {fail}")
+
+
+def _dryrun_plans(tmp):
+    """The dry run's plan files: granite-8b decode_32k's default plan with
+    ``decode_shardmap``, qwen3-moe-30b-a3b's with ``moe_dispatch="a2a"``."""
+    from repro_torch.configs import get_arch, get_shape
+    from repro_torch.core.plan import Plan
+    from repro_torch.launch.dryrun import default_plan
+
+    def with_clause(arch, **fields):
+        base = default_plan(get_arch(arch), get_shape("decode_32k"))
+        plan = Plan({k: dataclasses.replace(c, clause=dataclasses.replace(
+            c.clause, **fields)) for k, c in base.segments.items()},
+            base.knobs)
+        path = str(Path(tmp) / f"{arch}.plan.json")
+        plan.save(path)
+        return path
+    return (with_clause("granite-8b", decode_shardmap=True),
+            with_clause(MOE, moe_dispatch="a2a"))
+
+
+def _dryrun_start(torch, state, tmp):
+    """(c) ``python -m repro_torch.launch.dryrun --device cuda`` as three
+    subprocesses at once (a fake group cannot share a process with the
+    NCCL group): granite-8b decode_32k on the (16, 16) and (2, 16, 16)
+    meshes under the default plan; granite-8b decode_32k with
+    ``decode_shardmap``; qwen3-moe-30b-a3b decode_32k with the all-to-all
+    dispatch.  Returns the running processes; :func:`_dryrun_check`
+    waits for them."""
+    import os
+    dsm, a2a = _dryrun_plans(tmp)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(SRC)] + [q for q in [os.environ.get("PYTHONPATH")] if q]))
+    runs = {"granite-8b default": ["--arch", "granite-8b", "--both-meshes"],
+            "granite-8b decode_shardmap": ["--arch", "granite-8b",
+                                           "--plan", dsm],
+            "qwen3-moe-30b-a3b a2a": ["--arch", MOE, "--plan", a2a]}
+    procs = {}
+    for label, args in runs.items():
+        out = Path(tmp) / f"{label.replace(' ', '_')}.json"
+        logf = open(Path(tmp) / f"{label.replace(' ', '_')}.log", "w")
+        procs[label] = (subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--device",
+             "cuda", "--shape", "decode_32k", "--out", str(out), *args],
+            env=env, cwd=str(ROOT), stdout=logf, stderr=subprocess.STDOUT),
+            out, logf, time.perf_counter())
+    return procs
+
+
+def _dryrun_check(torch, state, procs):
+    """(c) The dry-run cells: each cell's status and collective bytes by
+    kind, and the granite-8b cells held to the arithmetic of
+    DRYRUN_GATHER_MIN_BYTES / DRYRUN_DSM_MAX_BYTES."""
+    cells, fail, walls = {}, [], {}
+    for label, (proc, out, logf, t0) in procs.items():
+        try:
+            rc = proc.wait(timeout=DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
+        logf.close()
+        # an upper bound: the process may have ended long before it is read
+        walls[label] = time.perf_counter() - t0
+        text = Path(logf.name).read_text()
+        if rc != 0 or not out.exists():
+            fail.append(f"{label}: rc {rc}: {text[-1500:]}")
+            continue
+        for key, rec in json.loads(out.read_text()).items():
+            cells[f"{label} | {key}"] = {
+                "status": rec["status"], "chips": rec.get("chips"),
+                "elapsed_s": rec.get("elapsed_s"),
+                "collective_bytes": rec.get("cost", {}).get(
+                    "collective_bytes"),
+                "coll": {k: v for k, v in rec.get("detail", {}).items()
+                         if k.startswith("coll_")},
+                "peak_bytes": rec.get("detail", {}).get("peak_bytes"),
+                "dominant": rec.get("dominant")}
+    plain = cells.get("granite-8b default | granite-8b|decode_32k|single")
+    dsm = cells.get("granite-8b decode_shardmap | "
+                    "granite-8b|decode_32k|single")
+    if plain is None or dsm is None:
+        fail.append("the granite-8b cells are missing")
+    else:
+        gather = plain["coll"].get("coll_all-gather", 0.0)
+        if gather < DRYRUN_GATHER_MIN_BYTES:
+            fail.append(f"without decode_shardmap: all-gather {gather:.4g} "
+                        f"B < {DRYRUN_GATHER_MIN_BYTES}")
+        if dsm["collective_bytes"] > DRYRUN_DSM_MAX_BYTES or \
+                dsm["coll"].get("coll_all-gather", 0.0) > \
+                DRYRUN_DSM_MAX_BYTES:
+            fail.append(f"with decode_shardmap: collectives "
+                        f"{dsm['collective_bytes']:.4g} B, {dsm['coll']}")
+    for key, c in cells.items():
+        if c["status"] != "ok":
+            fail.append(f"{key}: {c['status']}")
+    line = {"mesh": "dryrun", "device": "cuda", "cells": cells,
+            "start_to_read_s": walls, "gather_min_bytes":
+            DRYRUN_GATHER_MIN_BYTES, "dsm_max_bytes": DRYRUN_DSM_MAX_BYTES,
+            "gates_failed": fail}
+    print(json.dumps(line), flush=True)
+    for key, c in cells.items():
+        log(f"dryrun {key}: {c['status']} "
+            f"{ {k: round(v / 2**20, 3) for k, v in c['coll'].items()} } "
+            f"MiB")
+    if fail:
+        raise SmokeFailure(f"mesh dryrun: {fail}")
 
 
 def _mesh_sweep(torch, state, spec):
@@ -4009,13 +4381,14 @@ KERNELS = {
                          "backends stablelm-3b",
                          "mesh prefill granite-8b tensor_par",
                          "mesh prefill granite-8b fsdp",
-                         "mesh train granite-8b", "mesh sweep granite-8b")),
+                         "mesh train granite-8b", "mesh sweep granite-8b",
+                         f"mesh a2a {MOE}")),
     "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
                      "src/repro/kernels/flash_decode.py:58",
                      ("serve granite-8b", f"serve {MOE}",
                       *(f"serve {a}" for a in DENSE),
                       "tune granite-8b serving", "tune serve granite-8b",
-                      "mesh serve granite-8b")),
+                      "mesh serve granite-8b", "mesh shardmap granite-8b")),
     "rglru": ("src/repro_torch/kernels/csrc/rglru.cu",
               "src/repro/kernels/rglru.py:46",
               ("prefill recurrentgemma-2b", "train recurrentgemma-2b",
@@ -4076,7 +4449,7 @@ def kernels_line(state):
                                              "cuda_kernels_per_call")})
             entry["at_S_4096"] = {k: pick_row("mlstm", S=4096)[k]
                                   for k in NUMBERS + ("peak_bytes",)}
-            entry["at_train_B8_S512"] = {
+            entry[f"at_train_B{TRAIN_XLSTM_B}_S{TRAIN_XLSTM_S}"] = {
                 k: pick_row("mlstm", B=TRAIN_XLSTM_B, S=TRAIN_XLSTM_S)[k]
                 for k in NUMBERS + ("peak_bytes",)}
         if name == "rmsnorm":

@@ -329,6 +329,13 @@ def _rule_tiles(cfg, shape, combo, seg) -> List[Diagnostic]:
     for op, fields in sites:
         for d in lint_schedule(op, fields, cfg, shape):
             d.segment = seg.name
+            if op == "flash_decode" and cl.decode_shardmap:
+                # the shardmap gate (models/attention.py attn_decode) also
+                # needs the cache's seq dim sharded, which the mesh decides:
+                # the kernel is only maybe reached, not provably
+                d.severity = WARN
+                d.message += (" (decode_shardmap=True may bypass the "
+                              "kernel; not provably fatal)")
             out.append(d)
     return out
 

@@ -23,6 +23,7 @@ import signal
 import statistics
 import threading
 import time
+import weakref
 from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor, wait
 from contextlib import contextmanager
 from dataclasses import dataclass
@@ -127,6 +128,19 @@ def _touched_bytes(t: torch.Tensor) -> int:
     return n * t.element_size()
 
 
+def _group_size(args) -> int:
+    """The size of the process group a collective runs over: its group
+    name is its last string argument."""
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    for a in reversed(args):
+        if isinstance(a, str):
+            try:
+                return _resolve_process_group(a).size()
+            except Exception:
+                continue
+    return 1
+
+
 class OpCounter(TorchDispatchMode):
     """Counts a program's work as it runs (on fake tensors, in the dry
     run): flops by ``torch.utils.flop_counter.FlopCounterMode`` (every
@@ -135,7 +149,15 @@ class OpCounter(TorchDispatchMode):
     formulas ``kernels/ops.py`` registers), bytes as each operator's
     inputs read and outputs written once (views and uninitialised
     allocations move nothing).  A kernel op counts as one operator: its
-    inputs and outputs, flash-decode's whole cache with them."""
+    inputs and outputs, flash-decode's whole cache with them.
+
+    Each operator is kept as a ``runtime.hlo.OpRecord``; a collective
+    (``_c10d_functional``) is charged the bytes it moves per device, its
+    result's bytes at the reference's ring factor for its group's size
+    (``runtime.hlo._collective_moved``).  ``analysis()`` gives the
+    reference's ``analyze_hlo`` keys.  The counter also tracks the bytes
+    of the storages the program allocates while they live: ``peak_live``
+    is their peak (each rank's local shards under a mesh)."""
 
     def __init__(self):
         super().__init__()
@@ -143,7 +165,11 @@ class OpCounter(TorchDispatchMode):
         self._flops = FlopCounterMode(display=False)
         self.extra_flops = 0.0
         self.bytes = 0
-        self.coll_bytes = 0
+        self.coll_bytes = 0.0
+        self.records = []
+        self.live = 0
+        self.peak_live = 0
+        self._seen = set()
 
     def __enter__(self):
         self._flops.__enter__()
@@ -163,24 +189,63 @@ class OpCounter(TorchDispatchMode):
         return {op.__name__.split(".")[-1]: float(n) for op, n in
                 self._flops.get_flop_counts().get("Global", {}).items()}
 
+    def analysis(self) -> Dict[str, float]:
+        """``runtime.hlo.analyze_ops`` of the stream: ``flops``,
+        ``bytes``, ``collective``, ``coll_<kind>``."""
+        from repro_torch.runtime.hlo import analyze_ops
+        return analyze_ops(self.records, self.flops)
+
+    def _track(self, out, args):
+        """Count the storages ``out`` allocates until they die."""
+        ins = {id(t) for t in pytree_leaves(args)
+               if isinstance(t, torch.Tensor)}
+        for t in pytree_leaves(out):
+            if not isinstance(t, torch.Tensor) or id(t) in ins:
+                continue
+            try:
+                st = t.untyped_storage()
+            except Exception:       # a wrapper subclass without storage
+                continue
+            key = id(st)
+            if key in self._seen:
+                continue
+            n = st.nbytes()
+            self._seen.add(key)
+            self.live += n
+            self.peak_live = max(self.peak_live, self.live)
+            weakref.finalize(st, self._free, key, n)
+
+    def _free(self, key, n):
+        self._seen.discard(key)
+        self.live -= n
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.utils.flop_counter import flop_registry
+        from repro_torch.runtime.hlo import OpRecord, collective_kind
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         name = func.overloadpacket.__name__
         if name.startswith("_scaled_dot_product") and \
                 func.overloadpacket not in flop_registry:
             self.extra_flops += _sdpa_flops(func, args)
+        full = f"{func.namespace}.{name}"
         if func.namespace in _COLLECTIVES:
-            # a collective's output crosses the links: collective bytes
-            self.coll_bytes += sum(
-                _touched_bytes(t) for t in pytree_leaves(out)
-                if isinstance(t, torch.Tensor))
+            kind = collective_kind(name)
+            if kind is not None:
+                rec = OpRecord(full, 0, kind, sum(
+                    _touched_bytes(t) for t in pytree_leaves(out)
+                    if isinstance(t, torch.Tensor)), _group_size(args))
+                self.coll_bytes += rec.moved
+                self.records.append(rec)
         elif not (func.namespace == "prim" or getattr(func, "is_view", False)
                   or name in _NO_DATA):
-            self.bytes += sum(
-                _touched_bytes(t) for t in pytree_leaves((args, kwargs, out))
-                if isinstance(t, torch.Tensor))
+            n = sum(_touched_bytes(t) for t in pytree_leaves((args, kwargs,
+                                                                out))
+                    if isinstance(t, torch.Tensor))
+            self.bytes += n
+            self.records.append(OpRecord(full, n))
+        if not getattr(func, "is_view", False):
+            self._track(out, (args, kwargs))
         return out
 
 
@@ -197,9 +262,11 @@ class DryRunExecutor:
 
     Under a mesh the program runs on DTensors over fake tensors, so the
     counter sees each rank's local operators: the counts are one
-    device's, and a collective's output bytes are its collective bytes.
-    A mesh needs its process group (``MeshSpec.to_mesh``), as the
-    reference's dry run needs its devices."""
+    device's, and each collective is charged the bytes it moves at the
+    reference's ring factor for its group (``runtime.hlo``).  A mesh
+    needs its process group (``MeshSpec.to_mesh``), as the reference's dry
+    run needs its devices: a real one, or a fake one of at least its size
+    (``launch.mesh.fake_group``)."""
 
     #: analytic scoring: concurrent workers don't perturb each other
     parallel_safe = True
@@ -318,6 +385,11 @@ class WallClockExecutor:
                       seg: Segment, combo: Combination,
                       knobs: Optional[GlobalKnobs] = None,
                       mesh=None) -> CostTerms:
+        from repro_torch.launch.mesh import FakeGroupError, is_fake_group
+        if is_fake_group():
+            raise FakeGroupError("the wall clock cannot time on a fake "
+                                 "process group: its collectives move "
+                                 "nothing (use the dry run)")
         mesh = _job_mesh(self, mesh)
         cuda = self.device.type == "cuda"
         if cuda:

@@ -134,10 +134,12 @@ class MeshSpec:
     def check_local(self):
         """Raise :class:`MeshUnsatisfiable` unless this process can
         materialize the spec: one rank per device, in a default group of
-        exactly ``n_devices`` ranks (one device needs no group yet)."""
+        exactly ``n_devices`` ranks (one device needs no group yet), or
+        of at least that many on a fake group (``launch.mesh.fake_group``,
+        the dry run's)."""
         if self.is_local:
             return
-        from repro_torch.launch.mesh import world_size
+        from repro_torch.launch.mesh import is_fake_group, world_size
         kind = self.device_type()
         if kind not in ("cuda", "cpu"):
             raise MeshUnsatisfiable(f"mesh {self.key()}: no device type "
@@ -150,7 +152,8 @@ class MeshSpec:
         have = world_size()
         if have is None:
             have = 1
-        if have != self.n_devices:
+        if have != self.n_devices and not (is_fake_group()
+                                           and have > self.n_devices):
             raise MeshUnsatisfiable(
                 f"mesh {self.key()} needs {self.n_devices} {kind!r} "
                 f"rank(s); this process group has {have}")

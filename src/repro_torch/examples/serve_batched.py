@@ -18,9 +18,10 @@ import torch
 
 from repro_torch.configs import get_arch
 from repro_torch.device import resolve_device
-from repro_torch.launch.serve import default_plan
+from repro_torch.launch.dryrun import default_plan
 from repro_torch.models.model import init_cache, model_specs
 from repro_torch.models.params import init_params
+from repro_torch.serve.registry import serving_shape
 from repro_torch.serve.step import make_decode_step
 
 
@@ -29,7 +30,7 @@ def generate(arch: str, batch: int = 4, prompt_len: int = 8,
     """Greedy tokens (batch, gen_len) of ``arch``'s smoke config."""
     dev = resolve_device(device)
     cfg = get_arch(arch).smoke()
-    plan = default_plan(cfg)
+    plan = default_plan(cfg, serving_shape(batch, cache_len))
     params = init_params(model_specs(cfg), torch.Generator().manual_seed(0),
                          dev)
     step = make_decode_step(cfg, plan, device=dev)

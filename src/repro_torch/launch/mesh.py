@@ -10,10 +10,16 @@ GPU, so one card holds only the (1, 1) mesh; larger meshes run under gloo
 on the CPU.
 
 ``make_production_mesh`` raises :class:`MeshUnsatisfiable` unless the
-default group has the production pod's 256 (or 512) ranks.
+default group has the production pod's 256 (or 512) ranks.  The dry run
+opens such a group with :func:`fake_group`: a default group on torch's
+``fake`` backend, whose collectives move nothing, where the reference sets
+``--xla_force_host_platform_device_count``.  A process holds one default
+group, so a fake group refuses to open over a real one, and the wall-clock
+executor refuses to time on a fake one (:class:`FakeGroupError`).
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import tempfile
 from datetime import timedelta
@@ -33,6 +39,10 @@ _OWN_STORE: list = []
 STORE_ROOT: Optional[str] = None
 
 
+class FakeGroupError(RuntimeError):
+    """A fake process group where a real one is needed (or the reverse)."""
+
+
 def world_size() -> Optional[int]:
     """The default group's world size, or None without a group."""
     import torch.distributed as dist
@@ -49,6 +59,35 @@ def default_device_type() -> str:
     if dist.is_available() and dist.is_initialized():
         return "cuda" if dist.get_backend() == "nccl" else "cpu"
     return "cuda" if torch.cuda.is_available() else "cpu"
+
+
+def is_fake_group() -> bool:
+    """True when the default group is a :func:`fake_group`."""
+    import torch.distributed as dist
+    return (dist.is_available() and dist.is_initialized()
+            and dist.get_backend() == "fake")
+
+
+@contextlib.contextmanager
+def fake_group(world: int):
+    """A default group of ``world`` ranks on torch's ``fake`` backend, as
+    rank 0, destroyed on exit: meshes of up to ``world`` devices build on
+    it, and their collectives return at once without moving data (fake
+    tensors stand for the data).  Refuses to open while a default group
+    exists."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if world_size() is not None:
+        raise FakeGroupError(
+            f"a fake group of {world} ranks cannot open: this process "
+            f"already has a default group ({dist.get_backend()}, "
+            f"{world_size()} ranks)")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=int(world))
+    try:
+        yield
+    finally:
+        destroy_group()
 
 
 def backend_for(device_type: str) -> str:
@@ -96,7 +135,8 @@ def destroy_group():
 def device_mesh(shape: Sequence[int], axis_names: Sequence[str],
                 device_type: str):
     """A DeviceMesh of ``shape`` over the default group's ranks (made at
-    world size 1 for a one-device shape when there is none)."""
+    world size 1 for a one-device shape when there is none; over the first
+    ranks of a larger fake group)."""
     import math
     import torch
     from torch.distributed.device_mesh import DeviceMesh
@@ -104,7 +144,9 @@ def device_mesh(shape: Sequence[int], axis_names: Sequence[str],
     if n == 1:
         ensure_group(device_type)
     have = world_size()
-    if have != n:
+    # a fake group's first n ranks hold any smaller mesh: its collectives
+    # never wait on the ranks left out
+    if have != n and not (is_fake_group() and have > n):
         raise MeshUnsatisfiable(
             f"a {tuple(shape)} mesh needs a group of {n} ranks; the default "
             f"group has {have}")
@@ -113,8 +155,14 @@ def device_mesh(shape: Sequence[int], axis_names: Sequence[str],
 
 
 def make_production_mesh(*, multi_pod: bool = False, device_type="cuda"):
+    """The production pod's (16, 16) ``data x model`` mesh, or two pods'
+    (2, 16, 16); it needs a group of 256 (512) ranks, which the dry run
+    opens with :func:`fake_group`."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if is_fake_group():
+        # MeshSpec.check_local asks for a card the fake group never uses
+        return device_mesh(shape, axes, device_type)
     return MeshSpec(tuple(zip(axes, shape)), device_type).to_mesh()
 
 

@@ -36,21 +36,11 @@ import argparse
 import numpy as np
 
 from repro_torch.configs import ARCHS, get_arch
-from repro_torch.configs.base import ArchConfig
-from repro_torch.core.plan import Plan, uniform_plan
+from repro_torch.core.plan import Plan
+from repro_torch.launch.dryrun import default_plan
 from repro_torch.launch.mesh import destroy_group, launch_mesh
-from repro_torch.models.context import SegmentClause
 from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.serve.registry import PlanRegistry, serving_shape
-
-
-def default_plan(cfg: ArchConfig) -> Plan:
-    """The a-priori serving plan, as the reference's ``default_plan`` for
-    non-MoE archs at inference shapes: no remat, plain kernels,
-    tensor_par[shard_vocab].  MoE archs take it too: the reference's
-    expert_par provider for them maps nothing without a mesh."""
-    return uniform_plan(cfg, "tensor_par", frozenset({"shard_vocab"}),
-                        SegmentClause(remat="none", kernel="plain"))
 
 
 def synthetic_requests(n: int, vocab: int, *, prompt_len: int,
@@ -83,7 +73,7 @@ def resolve_plan(cfg, shape, *, plan_path=None, registry_db=None):
                 f"(python -m repro_torch.serve.registry)")
         src = "registry" if entry.exact else f"registry~{entry.shape}"
         return entry.plan, src
-    return default_plan(cfg), "default"
+    return default_plan(cfg, shape), "default"
 
 
 def serve(argv=None):

@@ -19,8 +19,10 @@ Every arch of ``repro_torch.configs.ARCHS`` trains, the MoE archs
 included (their loss adds the routers' load-balancing loss), and the
 stub-frontend archs (phi-3-vision-4.2b, musicgen-large) from their
 pipeline's ``embeds``.
-qwen3-moe-30b-a3b at full depth with f32 AdamW state needs ~366 GB: on
-one card, train it cut in depth.
+The plan is the ``--plan`` file or ``launch/dryrun.py``'s
+``default_plan``, the reference's: MoE archs train by ``expert_par`` with
+bf16 AdamW state.  qwen3-moe-30b-a3b at full depth does not fit one card
+even so: train it cut in depth.
 """
 from __future__ import annotations
 
@@ -34,32 +36,14 @@ import torch
 
 from repro_torch.checkpoint.store import CheckpointStore
 from repro_torch.configs import ARCHS, get_arch, get_shape
-from repro_torch.configs.base import ArchConfig, ShapeConfig
-from repro_torch.core.combinator import GlobalKnobs
-from repro_torch.core.plan import Plan, uniform_plan
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.core.plan import Plan
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.device import resolve_device
+from repro_torch.launch.dryrun import default_plan
 from repro_torch.launch.mesh import destroy_group, launch_mesh
-from repro_torch.models.context import SegmentClause
 from repro_torch.train.step import (init_train_state, make_train_step,
                                     place_batch)
-
-
-def default_plan(cfg: ArchConfig, shape: ShapeConfig) -> Plan:
-    """The a-priori baseline plan of the reference's
-    ``launch/dryrun.py:default_plan`` for non-MoE archs: at train shapes
-    hybrid2d[shard_vocab] with ``remat="dots"``, plain kernels and f32
-    optimizer state; at inference shapes tensor_par[shard_vocab], no
-    remat.  MoE archs take it too (the reference's expert_par provider
-    maps nothing without a mesh; its bf16 optimizer state for them is
-    not taken: pass a ``--plan`` to change the state's dtype)."""
-    if shape.kind == "train":
-        return uniform_plan(cfg, "hybrid2d", frozenset({"shard_vocab"}),
-                            SegmentClause(remat="dots", kernel="plain"),
-                            GlobalKnobs(microbatches=1, donate=True,
-                                        opt_state_dtype="float32"))
-    return uniform_plan(cfg, "tensor_par", frozenset({"shard_vocab"}),
-                        SegmentClause(remat="none", kernel="plain"))
 
 
 class Heartbeat:

@@ -10,14 +10,17 @@ Decode writes the new token's K/V into the caches in place (the reference
 returns updated copies); the caches are returned all the same.  Under a
 mesh the caches are DTensors, and the write lands on each rank's local
 shard (:func:`_write_slot`); where the rules shard ``kv_seq`` the cache is
-gathered, written and resharded, as the reference's pure path does.
-``decode_shardmap`` (the reference's
-``attn_decode_shardmap``) is ROADMAP Queue 1 item 4(b) and raises under a
-mesh; meshless it changes nothing, as the reference's needs a sharded
-``kv_seq``.
+gathered, written and resharded, as the reference's pure path does,
+unless the clause sets ``decode_shardmap``: then each rank keeps its
+block of the sequence, writes the token only where it lands and combines
+its partial attention with the others' through their log-sum-exp
+(:func:`attn_decode_shardmap`, the reference's), and no cache is
+gathered.  Meshless ``decode_shardmap`` changes nothing, as the
+reference's needs a sharded ``kv_seq``.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -213,13 +216,14 @@ def attn_decode(p, x1, cache, pos, cfg: ArchConfig, ctx: ModelContext):
     q = apply_rope(q, pos, cfg.rope)
     k = apply_rope(k, pos, cfg.rope)
     vector_pos = _is_vector(pos)
+    if (not vector_pos and ctx.clause.decode_shardmap
+            and not cfg.window_size and _seq_sharded(ctx, cache)):
+        o, new_cache = attn_decode_shardmap(q, k, v, cache, pos, ctx)
+        y = torch.tensordot(o, p["wo"], dims=([1, 2], [0, 1])).to(x1.dtype)
+        return ctx.constrain(y, ("batch", "embed")), new_cache
     k_cache, v_cache = cache["k"], cache["v"]
     cache_len = k_cache.shape[1]
     slot = pos % cache_len if cfg.window_size else pos  # ring buffer if windowed
-    if ctx.meshed and ctx.clause.decode_shardmap:
-        raise NotImplementedError(
-            "decode_shardmap under a mesh (the reference's "
-            "attn_decode_shardmap) is ROADMAP Queue 1 item 4(b)")
     k_cache = _write_slot(ctx, k_cache, k, slot)
     v_cache = _write_slot(ctx, v_cache, v, slot)
     k_cache = ctx.constrain(k_cache, ("batch", "kv_seq", "kv_heads", None))
@@ -240,6 +244,81 @@ def attn_decode(p, x1, cache, pos, cfg: ArchConfig, ctx: ModelContext):
     return y, {"k": k_cache, "v": v_cache}
 
 
+def _seq_sharded(ctx: ModelContext, cache) -> bool:
+    """True when the rules shard the KV cache's sequence dim (on the
+    ``model`` axis) under a mesh."""
+    if not ctx.meshed:
+        return False
+    ps = ctx.rules.pspec(("batch", "kv_seq", "kv_heads", None),
+                         cache["k"].shape)
+    return len(ps) > 1 and ps[1] == "model"
+
+
+def attn_decode_shardmap(q, k, v, cache, pos, ctx: ModelContext):
+    """Sequence-sharded KV decode, the reference's ``attn_decode_shardmap``.
+
+    The caches stay split along their sequence on the ``model`` axis: each
+    rank holds its (B_l, S_l, KV, D) block, S_l = Smax / tp, writes the new
+    token only when ``pos`` lands in its block (a clipped slot and a
+    select: no collective), and attends to its block under the global
+    position mask.  The ranks then combine their partial softmaxes by
+    their log-sum-exp: ``m = pmax(m_l)``, ``l = psum(exp(m_l - m) l_l)``,
+    ``o = psum(o_l exp(m_l - m)) / l`` (flash-decode's LSE combine).  A
+    rank whose block lies wholly past ``pos`` has ``m_l = NEG_INF``, a
+    finite value, so its share ``exp(m_l - m)`` is 0, not NaN.  q, k, v are
+    split on the batch axes where B divides, and whole over ``model``.
+    """
+    from repro_torch.runtime.sharding import (all_reduce, batch_axes,
+                                              has_layout, map_local)
+    mesh = ctx.rules.mesh
+    sizes = ctx.rules.axis_sizes
+    tp = sizes["model"]
+    b_axes = batch_axes(mesh)
+    B, Smax, KV, D = cache["k"].shape
+    H = q.shape[1]
+    G = H // KV
+    S_l = Smax // tp
+    dp = math.prod(sizes[a] for a in b_axes)
+    b_ax = (b_axes if len(b_axes) > 1 else b_axes[0]) \
+        if b_axes and B % dp == 0 else None
+    lo = mesh.get_local_rank("model") * S_l
+
+    def local(q, k, v, ck, cv):
+        p = torch.as_tensor(pos, device=ck.device)
+        slot = torch.clamp(p - lo, 0, S_l - 1)
+        hit = (p >= lo) & (p < lo + S_l)
+        for c, new in ((ck, k), (cv, v)):
+            c[:, slot] = torch.where(hit, new.to(c.dtype), c[:, slot])
+        qg = q.reshape(q.shape[0], KV, G, D)
+        s = torch.einsum("bkgd,bskd->bkgs", qg.to(ck.dtype).float(),
+                         ck.float()) * (D ** -0.5)
+        ks = lo + torch.arange(S_l, device=ck.device)
+        s = torch.where(ks <= p, s, NEG_INF)
+        m_l = s.amax(dim=-1, keepdim=True)               # (B_l,KV,G,1)
+        p_l = torch.exp(s - m_l)
+        l_l = p_l.sum(dim=-1, keepdim=True)
+        o_l = torch.einsum("bkgs,bskd->bkgd", p_l.to(cv.dtype).float(),
+                           cv.float())
+        m_g = all_reduce(m_l, "max", mesh, "model")
+        share = torch.exp(m_l - m_g)
+        l_g = all_reduce(share * l_l, "sum", mesh, "model")
+        o = all_reduce(o_l * share, "sum", mesh, "model")
+        o = o / torch.clamp(l_g, min=1e-30)
+        return (o.reshape(q.shape[0], H, D).to(q.dtype), ck, cv)
+
+    row = (b_ax, None, None)
+    cache_spec = (b_ax, "model", None, None)
+    o, ck, cv = map_local(local, mesh, (row, row, row, cache_spec,
+                                        cache_spec),
+                          (row, cache_spec, cache_spec),
+                          q, k, v, cache["k"], cache["v"])
+    # the writes landed in the caches' own shards where they were laid
+    # out so already: hand those back, not copies to write over them
+    if has_layout(cache["k"], cache_spec):
+        ck, cv = cache["k"], cache["v"]
+    return o, {"k": ck, "v": cv}
+
+
 def _local(ctx: ModelContext, fn, tensors, dims, out_dims):
     """``fn(*tensors)``, on each rank's local shards under a mesh
     (``runtime.sharding.on_shards``: batch and heads stay sharded where
@@ -253,15 +332,18 @@ def _local(ctx: ModelContext, fn, tensors, dims, out_dims):
 
 def _decode_attention(ctx: ModelContext, q, k_cache, v_cache, pos):
     """``decode_attention`` at the clause's upcast, on local shards under
-    a mesh; a vector ``pos`` is split with the batch."""
+    a mesh; a vector ``pos`` is split with the batch.  The cache leads
+    (``on_shards`` keeps the first tensor's batch and head splits): q is
+    small and follows it, where q leading would gather the cache to q's
+    layout (a q whole over the batch axes gathers every row)."""
     up = ctx.clause.cache_upcast
     if _is_vector(pos):
-        return _local(ctx, lambda q, k, v, p: decode_attention(
-            q, k, v, p, upcast=up), [q, k_cache, v_cache, pos],
-            [(0, 1), (0, 2), (0, 2), (0,)], (0, 1))
-    return _local(ctx, lambda q, k, v: decode_attention(
-        q, k, v, pos, upcast=up), [q, k_cache, v_cache],
-        [(0, 1), (0, 2), (0, 2)], (0, 1))
+        return _local(ctx, lambda k, v, q, p: decode_attention(
+            q, k, v, p, upcast=up), [k_cache, v_cache, q, pos],
+            [(0, 2), (0, 2), (0, 1), (0,)], (0, 1))
+    return _local(ctx, lambda k, v, q: decode_attention(
+        q, k, v, pos, upcast=up), [k_cache, v_cache, q],
+        [(0, 2), (0, 2), (0, 1)], (0, 1))
 
 
 def _write_slot(ctx: ModelContext, cache, new, slot):
@@ -269,7 +351,9 @@ def _write_slot(ctx: ModelContext, cache, new, slot):
     ``cache`` to ``new[b]``, in place, and return the cache.  Under a mesh
     the write runs on each rank's local shard (batch and kv heads stay
     sharded); a sharded ``kv_seq`` is gathered first, and the caller's
-    ``constrain`` reshards it."""
+    ``constrain`` reshards it.  With ``decode_shardmap`` a scalar-pos
+    decode does not come here: :func:`attn_decode_shardmap` writes each
+    rank's own block and gathers nothing."""
     def write(c, n, *rows_slot):
         if rows_slot:                       # a slot per row
             rows = torch.arange(c.shape[0], device=c.device)

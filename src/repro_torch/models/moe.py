@@ -35,12 +35,17 @@ a value the reference computes:
   serving engine's batched == sequential contract needs every row to be
   a deterministic function of its own inputs.
 
-The all-to-all dispatch (``moe_apply_a2a``) is ROADMAP Queue 1 item 4(b):
-under a mesh ``moe_dispatch="a2a"`` raises.  Without a mesh the reference
-takes the sorted path for ``moe_dispatch="a2a"`` too, and so does the
-port.
+``moe_dispatch="a2a"`` under a mesh with a ``model`` axis that divides
+the experts is the reference's expert-parallel dispatch
+(:func:`moe_apply_a2a`): each ``model`` rank owns E / tp experts and
+dispatches only the tokens routed to them, and one sum over ``model``
+combines the partial outputs.  Otherwise (no mesh, no such axis) the
+reference takes the sorted path for ``moe_dispatch="a2a"`` too, and so
+does the port.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -81,7 +86,19 @@ def route(router, xf, k: int):
     router to it, as the reference's does) and only then goes to f32: an
     f32 product would pick other experts at bf16.
     """
-    logits = dense(xf, router).float()
+    return _top_k(dense(xf, router).float(), k)
+
+
+def route_f32(router, xf, k: int):
+    """The router in f32 (the product too): the all-to-all dispatch's, as
+    the reference's ``moe_apply_a2a`` routes."""
+    return _top_k(xf.float() @ router.float(), k)
+
+
+def _top_k(logits, k: int):
+    """(probs, renormalised top-k gates, their expert ids) of f32 router
+    logits: a stable descending sort, so a tie puts the lower expert
+    first, as ``jax.lax.top_k`` does."""
     probs = torch.softmax(logits, dim=-1)
     top, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gates, idx = top[..., :k], idx[..., :k]
@@ -156,15 +173,15 @@ def _expert_mm(h, w):
 
 
 def moe_apply(p, x, cfg: ArchConfig, ctx: ModelContext):
-    """x: (B, S, d) -> ((B, S, d), aux).  Meshless, every dispatch clause
-    (``"sorted"`` and ``"a2a"``) takes the sorted path, as the
-    reference's does without a mesh.  Under a mesh ``"a2a"`` (the
-    reference's ``moe_apply_a2a``) is ROADMAP Queue 1 item 4(b) and
-    raises."""
-    if ctx.meshed and ctx.clause.moe_dispatch == "a2a":
-        raise NotImplementedError(
-            "moe_dispatch='a2a' under a mesh (the reference's "
-            "moe_apply_a2a) is ROADMAP Queue 1 item 4(b)")
+    """x: (B, S, d) -> ((B, S, d), aux).  The dispatch strategy from the
+    clause, under the reference's gate: ``"a2a"`` takes
+    :func:`moe_apply_a2a` under a mesh whose ``model`` axis divides the
+    experts, the sorted path otherwise (and ``"sorted"`` always)."""
+    sizes = ctx.rules.axis_sizes
+    if ctx.clause.moe_dispatch == "a2a" and ctx.meshed \
+            and "model" in sizes \
+            and cfg.num_experts % sizes["model"] == 0:
+        return moe_apply_a2a(p, x, cfg, ctx)
     return moe_apply_sorted(p, x, cfg, ctx)
 
 
@@ -225,4 +242,93 @@ def moe_apply_sorted(p, x, cfg: ArchConfig, ctx: ModelContext):
     else:
         y = combine(out_buf, gates)[0]
     y = ctx.constrain(y.reshape(B, S, d).to(x.dtype), ("batch", "seq", "embed"))
+    return y, aux
+
+
+# ---------------------------------------------------------------------------
+# Expert parallelism over the ``model`` axis (the reference's
+# ``moe_apply_a2a``).  Tokens are split on the batch axes and whole over
+# ``model``; each ``model`` rank owns E_local = E / tp experts, dispatches
+# only the tokens routed to its own experts (no communication: every rank
+# holds its tokens), and the partial outputs are combined by one sum over
+# ``model`` per layer, in the activation dtype.
+# ---------------------------------------------------------------------------
+
+def moe_apply_a2a(p, x, cfg: ArchConfig, ctx: ModelContext):
+    """x: (B, S, d) -> ((B, S, d), aux loss f32; None in decode).
+
+    On each rank: the f32 router over all of its tokens and the top-k (the
+    reference routes in f32 here, where the sorted path routes in the
+    activation dtype), assignments to other ranks' experts sent to a trash
+    expert ``E_local``, one :func:`_dispatch_group` of ``E_local + 1``
+    experts at ``capacity(cfg, T_local)``, the trash row dropped, the
+    expert products, a zero row padded back for :func:`_combine_group`,
+    and a sum over ``model`` (``runtime.sharding.all_reduce``, whose
+    gradient is each rank's own cotangent: the meshless gradient).  The
+    aux loss is recomputed on the router math of all tokens, as the
+    reference's."""
+    from repro_torch.runtime.sharding import (all_reduce, batch_axes,
+                                              map_local)
+    mesh = ctx.rules.mesh
+    sizes = ctx.rules.axis_sizes
+    tp = sizes["model"]
+    E, k = cfg.num_experts, cfg.experts_per_token
+    E_local = E // tp
+    B, S, d = x.shape
+    b_axes = batch_axes(mesh)
+    dp = math.prod(sizes[a] for a in b_axes)
+    split = bool(b_axes) and B % dp == 0
+    b_ax = (b_axes if len(b_axes) > 1 else b_axes[0]) if split else None
+    x_spec = (b_ax, None, None)
+    w_spec = ("model", None, None)
+    lo = mesh.get_local_rank("model") * E_local
+    act = act_fn(cfg.act)
+    wg = p.get("wg")
+
+    def local(xl, router, wi, wo, *wg_l):
+        Bl, Sl, dl = xl.shape
+        T = Bl * Sl
+        xf = xl.reshape(T, dl)
+        _, gates, idx = route_f32(router, xf, k)
+        mine = (idx >= lo) & (idx < lo + E_local)
+        local_idx = torch.where(mine, idx - lo, E_local)
+        gates = gates * mine
+        buf, info = _dispatch_group(xf, gates, local_idx, E_local + 1,
+                                    capacity(cfg, T))
+        buf = buf[None, :E_local]                       # drop the trash
+        h = _expert_mm(buf, wi)
+        h = act(_expert_mm(buf, wg_l[0])) * h if wg_l else act(h)
+        ob = _expert_mm(h, wo)[0]
+        ob = torch.cat([ob, ob.new_zeros((1,) + ob.shape[1:])])
+        y = _combine_group(ob, info, gates, T)
+        # the partials are summed in the activation dtype, as the
+        # reference's (half the bytes of an f32 sum)
+        y = all_reduce(y.to(xl.dtype), "sum", mesh, "model")
+        return (y.reshape(Bl, Sl, dl),)
+
+    args = [x, p["router"], p["wi"], p["wo"]] + \
+        ([wg] if wg is not None else [])
+    specs = [x_spec, (None, None), w_spec, w_spec] + \
+        ([w_spec] if wg is not None else [])
+    split_axes = ("model",) + (tuple(b_axes) if split else ())
+    y, = map_local(local, mesh, specs, [x_spec], *args,
+                   split_axes=split_axes)
+    y = ctx.constrain(y, ("batch", "seq", "embed"))
+    if ctx.decode:
+        return y, None
+
+    def aux_local(xl, router):
+        # per rank: its tokens' sums, then a sum over the batch axes
+        xf = xl.reshape(-1, xl.shape[-1])
+        probs, _, idx = _top_k(xf.float() @ router.float(), k)
+        hot = (idx[..., None] == torch.arange(E, device=idx.device))
+        sums = torch.stack([probs.sum(dim=0),
+                            hot.float().sum(dim=(0, 1))])
+        if split:
+            sums = all_reduce(sums, "sum", mesh, b_axes)
+        me, ce = sums[0] / (B * S), sums[1] / (B * S * k)
+        return (E * (me * ce).sum(),)
+
+    aux, = map_local(aux_local, mesh, [x_spec, (None, None)], [()], x,
+                     p["router"], split_axes=tuple(b_axes) if split else ())
     return y, aux

@@ -140,6 +140,22 @@ def init_params(specs, generator: torch.Generator, device="cuda"):
     return tree_map_with_path(init_one, specs)
 
 
+def abstract_params(specs):
+    """Spec tree -> :class:`TensorSpec` tree (no allocation; for the dry
+    run, which makes them fake tensors: :func:`fake_tensors`)."""
+    return tree_map(lambda s: TensorSpec(tuple(s.shape), s.tdtype), specs)
+
+
+def fake_tensors(spec_tree, device="cpu"):
+    """A tree of :class:`TensorSpec` (or :class:`ParamSpec`) as
+    uninitialised tensors on ``device``: under ``FakeTensorMode``, fake
+    tensors that hold no memory."""
+    def make(s):
+        dt = s.tdtype if isinstance(s, ParamSpec) else s.dtype
+        return torch.empty(s.shape, dtype=dt, device=device)
+    return tree_map(make, spec_tree)
+
+
 def stack_specs(specs, n: int):
     """Stack a block's spec tree along a new leading scan dim."""
     return tree_map(lambda s: s.stacked(n), specs)

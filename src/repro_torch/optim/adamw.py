@@ -46,6 +46,17 @@ def adamw_init(params, state_dtype: str = "float32") -> AdamWState:
     return AdamWState(0, tree_map(zeros, params), tree_map(zeros, params))
 
 
+def adamw_abstract_state(param_specs_or_params,
+                         state_dtype: str = "float32") -> AdamWState:
+    """The AdamW state of a param tree (specs or tensors) as
+    ``TensorSpec``s in ``state_dtype``: no allocation (the dry run)."""
+    from repro_torch.models.params import TensorSpec
+    dt = DTYPES[state_dtype]
+    spec = lambda p: TensorSpec(tuple(p.shape), dt)   # noqa: E731
+    return AdamWState(0, tree_map(spec, param_specs_or_params),
+                      tree_map(spec, param_specs_or_params))
+
+
 def _is_dtensor(t) -> bool:
     from torch.distributed.tensor import DTensor
     return isinstance(t, DTensor)

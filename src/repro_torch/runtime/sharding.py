@@ -26,11 +26,16 @@ Named departures from the reference:
 * ``shard_map_compat`` has no counterpart: :func:`on_shards` runs a
   function on each rank's local shards (the kernel ops, the plain
   attention, the MoE dispatch), as ``local_map`` does, choosing the
-  layout from its inputs'.
+  layout from its inputs'; :func:`map_local` takes the layout from
+  explicit pspecs, as ``shard_map``'s ``in_specs``/``out_specs`` (the
+  sharded decode and the all-to-all MoE), and :func:`all_reduce` is the
+  ``psum``/``pmax`` over a mesh axis inside it, a functional collective
+  (which the dry run's counter sees).
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 Candidate = Union[None, str, Tuple[str, ...]]
@@ -303,6 +308,97 @@ def _register_op_rules():
             out.append(([Shard(d)], [Shard(d), Shard(d), buf(Shard(d))]))
         return out
     _RULES.append(_log_sigmoid_backward)
+
+
+def map_local(fn, mesh, in_specs, out_specs, *args, split_axes=()):
+    """``shard_map`` on a DeviceMesh: each argument (a DTensor, or a plain
+    tensor taken as replicated) laid out by its pspec in ``in_specs``
+    (``None``: passed as it is, e.g. a position) and handed to ``fn`` as
+    its local shard; ``fn``'s outputs (a tuple) become DTensors by
+    ``out_specs``.  A local shard is a view of its DTensor's storage
+    when the layout is already the pspec's, so ``fn`` may write into it
+    in place.
+
+    ``split_axes`` names the mesh axes over which ``fn`` does a different
+    share of the work on each rank: an argument whole over such an axis
+    gets the sum of the ranks' gradients there (``Partial``), one whole
+    over another axis (where every rank computes the same) the common
+    gradient."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    names = list(mesh.mesh_dim_names)
+    local = []
+    for a, spec in zip(args, in_specs):
+        if spec is None:
+            local.append(a)
+            continue
+        if not isinstance(a, DTensor):
+            a = DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        pl = _layout(mesh, placements(mesh, spec))
+        if not has_layout(a, spec):
+            a = a.redistribute(mesh, pl)
+        grad = [Partial() if isinstance(p, Replicate)
+                and names[i] in split_axes else p
+                for i, p in enumerate(pl)]
+        local.append(a.to_local(grad_placements=grad))
+    outs = fn(*local)
+    return tuple(DTensor.from_local(o, mesh, _layout(mesh, placements(
+        mesh, spec)), run_check=False) for o, spec in zip(outs, out_specs))
+
+
+def _layout(mesh, pl) -> tuple:
+    """Placements with a split over a mesh axis of size 1 (no split)
+    read as ``Replicate``."""
+    from torch.distributed.tensor import Replicate
+    return tuple(Replicate() if mesh.size(i) == 1 else p
+                 for i, p in enumerate(pl))
+
+
+def has_layout(x, spec) -> bool:
+    """True when DTensor ``x`` is laid out as ``spec`` says (so its local
+    shard is the one :func:`map_local` hands on, a view)."""
+    mesh = x.device_mesh
+    return _layout(mesh, x.placements) == _layout(mesh,
+                                                  placements(mesh, spec))
+
+
+def all_reduce(x, op: str, mesh, axis):
+    """``psum`` (``op="sum"``) or ``pmax`` (``"max"``) of a local tensor
+    over one mesh axis (or several, one after the other), inside
+    :func:`map_local`: a functional collective
+    (``_c10d_functional.all_reduce``), which the dry run's counter sees.
+    A sum's gradient passes each rank's own cotangent through unchanged:
+    the sum's output is whole on every rank, so each rank's cotangent is
+    already the whole one, and every share of the sum has that derivative
+    (the true gradient; a psum's transpose would sum it again).  ``max``
+    has no gradient (the decode combine)."""
+    axes = (axis,) if isinstance(axis, str) else tuple(axis)
+    for a in axes:
+        if op == "sum":
+            x = _sum_same_grad().apply(x, mesh.get_group(a))
+        else:
+            import torch.distributed._functional_collectives as funcol
+            x = funcol.wait_tensor(funcol.all_reduce(x, op,
+                                                     mesh.get_group(a)))
+    return x
+
+
+@functools.lru_cache(maxsize=None)
+def _sum_same_grad():
+    """The autograd Function of :func:`all_reduce`'s sum (made on first
+    use: this module imports without torch)."""
+    import torch
+
+    class SumSameGrad(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, group):
+            import torch.distributed._functional_collectives as funcol
+            return funcol.wait_tensor(funcol.all_reduce(x, "sum", group))
+
+        @staticmethod
+        def backward(ctx, g):
+            return g, None
+    return SumSameGrad
 
 
 def local_range(x, dim: int) -> Tuple[int, int]:

@@ -15,7 +15,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.plan import Plan, build_contexts
 from repro_torch.device import resolve_device
 from repro_torch.models.model import cache_specs, decode_step, forward
-from repro_torch.models.params import tree_map
+from repro_torch.models.params import DTYPES, TensorSpec, tree_map
 from repro_torch.runtime.sharding import (Sharding, full, is_device_mesh,
                                           placements)
 
@@ -84,33 +84,57 @@ def place_caches(caches, cfg: ArchConfig, plan: Plan, mesh):
             for seg, seg_axes in cache_axes(cfg).items()}
 
 
+def decode_input_specs(cfg: ArchConfig, shape):
+    """A decode step's inputs as ``TensorSpec``s (the dry run's): the
+    (B,) int64 tokens and a scalar position."""
+    return {"tokens": TensorSpec((shape.global_batch,), torch.int64),
+            "pos": TensorSpec((), torch.int64)}
+
+
+def prefill_input_specs(cfg: ArchConfig, shape):
+    """A prefill batch as ``TensorSpec``s: (B, S) int64 tokens, or a stub
+    frontend's (B, S, d_model) embeds."""
+    B, S = shape.global_batch, shape.seq_len
+    if cfg.frontend != "none":
+        return {"embeds": TensorSpec((B, S, cfg.d_model),
+                                     DTYPES[cfg.dtype])}
+    return {"tokens": TensorSpec((B, S), torch.int64)}
+
+
 def make_decode_step(cfg: ArchConfig, plan: Plan, *, device="cuda",
-                     mesh=None):
+                     mesh=None, gather: bool = True):
     """Returns serve_step(params, caches, tokens, pos) ->
-    (next_tokens, logits, caches); greedy."""
+    (next_tokens, logits, caches); greedy.  ``gather=False`` leaves the
+    logits laid out as the head's rules have them under a mesh and picks
+    no token (None): the dry run's program, whose collectives are then
+    the step's own."""
     resolve_device(device)
     ctxs = build_contexts(cfg, plan, mesh)
 
     @torch.no_grad()
     def serve_step(params, caches, tokens, pos):
         logits, caches = decode_step(params, caches, tokens, pos, cfg, ctxs)
+        if not gather:
+            return None, logits, caches
         logits = full(logits)
         return torch.argmax(logits, dim=-1), logits, caches
 
     return serve_step
 
 
-def make_prefill(cfg: ArchConfig, plan: Plan, *, device="cuda", mesh=None):
+def make_prefill(cfg: ArchConfig, plan: Plan, *, device="cuda", mesh=None,
+                 gather: bool = True):
     """Full-sequence forward (prefill compute shape). Returns
-    prefill(params, batch) -> logits (B,S,V) f32 (gathered under a
-    mesh)."""
+    prefill(params, batch) -> logits (B,S,V) f32 (gathered under a mesh
+    unless ``gather=False``)."""
     resolve_device(device)
     ctxs = build_contexts(cfg, plan, mesh)
+    out = full if gather else (lambda t: t)
 
     @torch.no_grad()
     def prefill(params, batch):
         logits, _ = forward(params, batch, cfg, ctxs)
-        return full(logits)
+        return out(logits)
 
     return prefill
 

@@ -19,10 +19,11 @@ from repro_torch.core.plan import Plan, build_contexts, segment_rules
 from repro_torch.device import resolve_device
 from repro_torch.models.loss import softmax_xent
 from repro_torch.models.model import SEG_EMBED, forward, model_specs
-from repro_torch.models.params import (init_params, param_pspecs,
+from repro_torch.models.params import (DTYPES, TensorSpec, abstract_params,
+                                       init_params, param_pspecs,
                                        place_params, tree_leaves, tree_map)
-from repro_torch.optim.adamw import (AdamWState, adamw_init, adamw_update,
-                                     cosine_lr)
+from repro_torch.optim.adamw import (AdamWState, adamw_abstract_state,
+                                     adamw_init, adamw_update, cosine_lr)
 from repro_torch.runtime.sharding import (Sharding, full, is_device_mesh,
                                           mesh_scope, placements)
 
@@ -54,17 +55,24 @@ def opt_shardings(cfg: ArchConfig, plan: Plan, mesh=None) -> AdamWState:
     return AdamWState(step=(), m=ps, v=ps)
 
 
+def batch_specs(cfg: ArchConfig, shape) -> dict:
+    """The training batch as ``TensorSpec``s (the dry run's stand-ins):
+    int64 targets, and tokens or (a stub frontend's) embeds."""
+    B, S = shape.global_batch, shape.seq_len
+    out = {"targets": TensorSpec((B, S), torch.int64)}
+    if cfg.frontend != "none":
+        out["embeds"] = TensorSpec((B, S, cfg.d_model), DTYPES[cfg.dtype])
+    else:
+        out["tokens"] = TensorSpec((B, S), torch.int64)
+    return out
+
+
 def batch_shardings(cfg: ArchConfig, shape, plan: Plan, mesh=None):
     """The batch's pspecs (``Sharding``s with a DeviceMesh) by the embed
     segment's rules, as the reference's."""
     rules = build_contexts(cfg, plan, mesh)[SEG_EMBED].rules
-    B, S = shape.global_batch, shape.seq_len
-    shapes = {"targets": (B, S)}
-    if cfg.frontend != "none":
-        shapes["embeds"] = (B, S, cfg.d_model)
-    else:
-        shapes["tokens"] = (B, S)
-    out = {k: rules.pspec(BATCH_AXES[k], shp) for k, shp in shapes.items()}
+    out = {k: rules.pspec(BATCH_AXES[k], s.shape)
+           for k, s in batch_specs(cfg, shape).items()}
     return _as_shardings(out, mesh if is_device_mesh(mesh) else None)
 
 
@@ -180,6 +188,13 @@ def _like(g, p):
     if isinstance(g, DTensor) and tuple(g.placements) != tuple(p.placements):
         return g.redistribute(p.device_mesh, p.placements)
     return g
+
+
+def abstract_train_state(cfg: ArchConfig, plan: Plan):
+    """``(params, opt_state)`` as ``TensorSpec`` trees: the params' specs
+    and an AdamW state in ``plan.knobs.opt_state_dtype`` (the dry run)."""
+    params = abstract_params(model_specs(cfg))
+    return params, adamw_abstract_state(params, plan.knobs.opt_state_dtype)
 
 
 def init_train_state(cfg: ArchConfig, plan: Plan,

@@ -321,3 +321,29 @@ def test_lint_cli_exit_codes_match_reference(tmp_path, capsys):
         assert jlint(argv) == rc, argv
     out = capsys.readouterr().out
     assert "microbatch" in out and "sweep spec" in out
+
+
+def test_decode_site_error_and_shardmap_demotion():
+    """The reference's ``decode-tile`` demotion
+    (``tests/test_analysis.py::test_decode_tile_rule_and_shardmap_demotion``)
+    on the port's flash-decode site: a refusal there is an ERROR, and with
+    ``decode_shardmap=True`` a WARN, because the sharded decode may route
+    around the kernel (its gate also needs the cache's seq dim sharded,
+    which the mesh decides)."""
+    cfg = dataclasses.replace(get_arch("granite-8b").smoke(), head_dim=24)
+    shape = get_shape("decode_32k").smoke()
+
+    def site(**fields):
+        combo = TC.Combination("fsdp", frozenset(),
+                               SegmentClause(kernel="cuda", **fields))
+        return [d for d in analyze_point(cfg, shape, combo)
+                if d.rule == "cuda-head-dim"]
+    bad = site()
+    assert bad and bad[0].is_error and bad[0].segment == "g0"
+    demoted = site(decode_shardmap=True)
+    assert demoted and demoted[0].severity == "warn"
+    assert not demoted[0].is_error
+    assert "decode_shardmap=True may bypass" in demoted[0].message
+    assert not errors(analyze_point(
+        cfg, shape, TC.Combination("fsdp", frozenset(), SegmentClause(
+            kernel="cuda", decode_shardmap=True))))

@@ -19,8 +19,18 @@ the same batch, and rank 0 writes what it measured:
   layout serves too; ``machine._collective_points`` measures at 4 ranks.
 
 The clause is ``kernel="cuda"``: the kernel ops' sharding rules run, with
-the kernels' plain versions on the CPU.  The MoE case compares at the
-same ``moe_groups`` (``dp_shards`` of the mesh: 2).
+the kernels' plain versions on the CPU.  The MoE cases compare at the
+same ``moe_groups`` (``dp_shards`` of the mesh: 2); under
+``moe_dispatch="a2a"`` each data rank's tokens are one dispatch group
+whose capacity is the meshless group's, so each expert keeps the same
+tokens and only the combine's order of sums differs.  The
+``decode_shardmap`` case (2 kv heads on a model axis of 4: the cache is
+split along its sequence) also decodes 6 positions, held to the meshless
+port's and the JAX package's decode, and serves.  The count case holds
+the dry run's ``OpCounter`` of one train segment on the real group to
+the same count on a fake group of 4 ranks (``launch.mesh.fake_group``,
+opened by rank 0 once the real group is gone): flops, bytes and every
+``coll_<kind>``, exactly.
 
 One named exception: xlstm's logits under ``tensor_par`` move by more
 than the f32 floor whenever the f32 sums of its projections are reordered,
@@ -48,6 +58,9 @@ LOGIT_ATOL, LOGIT_RTOL = 2e-5, 1e-5
 GRAD_REL_L2 = 1e-4
 UPDATE_REL_L2 = 1e-4
 JOIN_TIMEOUT_S = 240
+#: the decode case: positions, batch and cache length (model 4 splits
+#: the cache's 32 positions into blocks of 8)
+DECODE_STEPS, DECODE_B, DECODE_SMAX = 6, 4, 32
 
 GRANITE, RGEMMA, XLSTM, QWEN = ("granite-8b", "recurrentgemma-2b",
                                 "xlstm-125m", "qwen3-moe-30b-a3b")
@@ -59,8 +72,13 @@ SPAWNS = {
              ("granite_hybrid2d_2x2", GRANITE, "hybrid2d", (), ()),
              ("recurrentgemma_tp_2x2", RGEMMA, "tensor_par", (), ()),
              ("xlstm_tp_2x2", XLSTM, "tensor_par", (), ("reorder",)),
-             ("qwen3_moe_expert_par_2x2", QWEN, "expert_par", (), ())],
-    (1, 4): [("granite_tp_1x4_gqa", GRANITE, "tensor_par", (), ("engine",))],
+             ("qwen3_moe_expert_par_2x2", QWEN, "expert_par", (), ()),
+             ("qwen3_moe_a2a_2x2", QWEN, "expert_par", (), ("a2a",)),
+             ("granite_dryrun_count_2x2", GRANITE, "tensor_par", (),
+              ("count",))],
+    (1, 4): [("granite_tp_1x4_gqa", GRANITE, "tensor_par", (), ("engine",)),
+             ("granite_tp_1x4_decode_shardmap", GRANITE, "tensor_par", (),
+              ("decode_shardmap", "engine"))],
     (4, 1): [("granite_fsdp_both_4x1", GRANITE, "fsdp",
               ("shard_both_axes",), ())],
 }
@@ -126,8 +144,9 @@ def _case(case, mesh, wdir):
                                         make_train_step, place_batch)
     name, arch, provider, flags, extras = case
     cfg = get_arch(arch).smoke()
-    plan = uniform_plan(cfg, provider, frozenset(flags),
-                        SegmentClause(kernel="cuda"))
+    plan = uniform_plan(cfg, provider, frozenset(flags), _clause(extras))
+    if "count" in extras:
+        return {"real": _dry_count(cfg, plan, mesh)}
     shape = get_shape("train_4k").smoke()
     rng = np.random.default_rng(BATCH_SEED)
     toks = torch.from_numpy(_tokens(rng, cfg, shape))
@@ -200,11 +219,79 @@ def _case(case, mesh, wdir):
             r1[k].tokens == r2[k].tokens for k in r1)
         out["engine_eq_meshless"] = all(
             r1[k].tokens == r0[k].tokens for k in r0)
+    if "decode_shardmap" in extras:
+        out.update(_shardmap_decode(cfg, plan, p0, mesh, ref, clone))
     if "collectives" in extras:
         from repro_torch.core.machine import _collective_points
         pts = _collective_points(1 << 16, 2, torch.device("cpu"))
         out["collectives"] = {k: v["bytes_s"] for k, v in pts.items()}
     return out
+
+
+def _clause(extras):
+    from repro_torch.models.context import SegmentClause
+    return SegmentClause(kernel="cuda",
+                         moe_dispatch="a2a" if "a2a" in extras else "sorted",
+                         decode_shardmap="decode_shardmap" in extras)
+
+
+def _decode_inputs(cfg):
+    """The decode case's batch: (B,) tokens for each of DECODE_STEPS
+    positions, the same on every rank and in the parent."""
+    rng = np.random.default_rng(BATCH_SEED + 1)
+    return rng.integers(0, cfg.vocab_size, (DECODE_STEPS, DECODE_B))
+
+
+def _shardmap_decode(cfg, plan, p0, mesh, ref, clone):
+    """DECODE_STEPS positions of ``decode_step`` on the mesh (the sharded
+    decode) against the meshless port's and the JAX package's logits; the
+    gathered caches against the meshless port's."""
+    from repro_torch.core.plan import build_contexts, segment_rules
+    from repro_torch.models.model import decode_step, init_cache, model_specs
+    from repro_torch.models.params import place_params, tree_leaves
+    from repro_torch.runtime.sharding import full, mesh_scope
+    from repro_torch.serve.step import place_caches
+    toks = torch.from_numpy(_decode_inputs(cfg))
+    c0 = init_cache(cfg, DECODE_B, DECODE_SMAX, "cpu")
+    c1 = place_caches(init_cache(cfg, DECODE_B, DECODE_SMAX, "cpu"), cfg,
+                      plan, mesh)
+    ctx0, ctx1 = build_contexts(cfg, plan), build_contexts(cfg, plan, mesh)
+    p1 = place_params(clone(p0), model_specs(cfg),
+                      segment_rules(cfg, plan, mesh))
+    want = torch.from_numpy(ref["decode_logits"])
+    worst, worst_ref, ok = 0.0, 0.0, True
+    with torch.no_grad():
+        for pos in range(DECODE_STEPS):
+            l0, c0 = decode_step(p0, c0, toks[pos], pos, cfg, ctx0)
+            with mesh_scope(True):
+                l1, c1 = decode_step(p1, c1, toks[pos], pos, cfg, ctx1)
+            l1 = full(l1)
+            worst = max(worst, float((l1 - l0).abs().max()))
+            worst_ref = max(worst_ref, float((l1 - want[pos]).abs().max()))
+            ok &= bool(torch.allclose(l1, l0, atol=LOGIT_ATOL,
+                                      rtol=LOGIT_RTOL)) and bool(
+                torch.allclose(l1, want[pos], atol=LOGIT_ATOL,
+                               rtol=LOGIT_RTOL))
+    caches_close = all(
+        bool(torch.allclose(full(b), a, atol=LOGIT_ATOL, rtol=LOGIT_RTOL))
+        for a, b in zip(tree_leaves(c0), tree_leaves(c1)))
+    seq_split = sorted({str(tuple(t.placements)) for t in tree_leaves(c1)})
+    return {"decode_max_abs": worst, "decode_ref_max_abs": worst_ref,
+            "decode_close": ok, "decode_caches_close": caches_close,
+            "cache_placements": seq_split}
+
+
+def _dry_count(cfg, plan, mesh):
+    """The dry run's count of the first stack segment's train program on
+    ``mesh``: flops, bytes and collective bytes by kind."""
+    from repro_torch.configs import get_shape
+    from repro_torch.core.executor import DryRunExecutor
+    from repro_torch.core.segment import fragment
+    seg = next(s for s in fragment(cfg) if s.kind == "stack")
+    combo = plan.segments[seg.name]
+    counter = DryRunExecutor().count(cfg, get_shape("train_4k").smoke(),
+                                     seg, combo, mesh=mesh)
+    return counter.analysis()
 
 
 def _reorder_sensitivity(cfg, params, ctxs, batch, logits, parts):
@@ -248,10 +335,30 @@ def _rank_main(rank, world, store, shape, cases, wdir, out_path):
             results[case[0]] = _case(case, mesh, wdir)
         except Exception as e:       # recorded; the other ranks carry on
             results[case[0]] = {"error": f"{type(e).__name__}: {e}"}
+    destroy_group()
     if rank == 0:
+        for case in cases:
+            if "count" in case[4] and "error" not in results[case[0]]:
+                results[case[0]]["fake"] = _fake_count(case, shape)
         with open(out_path, "w") as f:
             json.dump(results, f)
-    destroy_group()
+
+
+def _fake_count(case, shape):
+    """The count case on a fake group of 4 ranks (this process's real
+    group destroyed first: a process holds one default group)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.plan import uniform_plan
+    from repro_torch.launch.mesh import device_mesh, fake_group
+    name, arch, provider, flags, extras = case
+    cfg = get_arch(arch).smoke()
+    plan = uniform_plan(cfg, provider, frozenset(flags), _clause(extras))
+    try:
+        with fake_group(4):
+            return _dry_count(cfg, plan, device_mesh(
+                shape, ("data", "model"), "cpu"))
+    except Exception as e:
+        return {"error": f"{type(e).__name__}: {e}"}
 
 
 # --- parent side ----------------------------------------------------------------
@@ -286,7 +393,7 @@ def _weights(wdir, shape):
     groups = shape[0]                   # dp_shards of a (data, model) mesh
     for name, arch, provider, flags, extras in SPAWNS[shape]:
         path = os.path.join(wdir, f"{name}.ref.npz")
-        if os.path.exists(path):
+        if os.path.exists(path) or "count" in extras:
             continue
         jcfg = jget_arch(arch).smoke()
         jp, _ = _params(jcfg)
@@ -310,6 +417,19 @@ def _weights(wdir, shape):
         out = {"logits": np.asarray(logits, np.float32),
                "loss": np.asarray(loss, np.float32)}
         out.update({"grad/" + k: v for k, v in _flat_jax(grads).items()})
+        if "decode_shardmap" in extras:
+            from repro.models.model import decode_step as jdecode_step
+            from repro.models.model import init_cache as jinit_cache
+            jc = jinit_cache(jcfg, DECODE_B, DECODE_SMAX)
+            dtoks = _decode_inputs(jcfg)
+            step = jax.jit(lambda p, c, t, i: jdecode_step(p, c, t, i, jcfg,
+                                                           ctxs))
+            logits = []
+            for i in range(DECODE_STEPS):
+                li, jc = step(jp, jc, jnp.asarray(dtoks[i], jnp.int32),
+                              jnp.int32(i))
+                logits.append(np.asarray(li, np.float32))
+            out["decode_logits"] = np.stack(logits)
         if "adamw" in extras:
             step, _ = jmake_train_step(jcfg, None, jplan, warmup=0)
             jp1, _, m = jax.jit(step)(jp, JA.adamw_init(jp), batch)
@@ -367,6 +487,12 @@ def test_meshed_port_matches_meshless(spawned, shape, name):
     assert "spawn_error" not in res, res
     r = res[name]
     assert "error" not in r, r["error"]
+    if "real" in r:
+        # the dry run's count on the real group == on a fake group
+        assert "error" not in r["fake"], r["fake"]
+        assert r["real"] == r["fake"], r
+        assert r["real"]["flops"] > 0 and r["real"]["collective"] > 0
+        return
     # the meshless port, then the JAX package, on the same weights and batch
     if "reorder_sensitivity" in r:
         assert r["logit_max_abs"] <= 2 * r["reorder_sensitivity"], r
@@ -385,6 +511,12 @@ def test_meshed_port_matches_meshless(spawned, shape, name):
     if "engine_batched_eq_sequential" in r:
         assert r["engine_batched_eq_sequential"], r
         assert r["engine_eq_meshless"], r
+    if "decode_close" in r:
+        assert r["decode_close"], r
+        assert r["decode_caches_close"], r
+        # the cache is split along its sequence (dim 2 of a stacked leaf)
+        assert any("Shard(dim=1)" in p or "Shard(dim=2)" in p
+                   for p in r["cache_placements"]), r
     if "collectives" in r:
         assert sorted(k.split(":")[0] for k in r["collectives"]) == \
             ["all_gather", "all_reduce"]

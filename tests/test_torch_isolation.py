@@ -92,7 +92,8 @@ def _entry_points():
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.examples import (compar_sweep_json, quickstart,
                                       serve_batched, train_e2e)
-    from repro_torch.launch.serve import default_plan, serve
+    from repro_torch.launch.dryrun import default_plan
+    from repro_torch.launch.serve import serve
     from repro_torch.launch.train import train
     from repro_torch.models.model import init_cache, model_specs
     from repro_torch.models.params import init_params
@@ -103,7 +104,7 @@ def _entry_points():
     from repro_torch.train.step import (init_train_state, make_grads,
                                         make_train_step)
     cfg = get_arch("granite-8b").smoke()
-    plan = default_plan(cfg)
+    plan = default_plan(cfg, get_shape("decode_32k").smoke())
     return {
         "ServeEngine": lambda: ServeEngine(cfg, plan),
         "make_prefill": lambda: make_prefill(cfg, plan),

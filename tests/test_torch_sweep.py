@@ -585,13 +585,15 @@ def test_op_counter_counts_every_product():
 
 
 def test_later_axes_raise_naming_their_roadmap_item(tmp_path):
-    """Only what is still pending raises: the sharded model paths (item
-    4(b)), ``decode_shardmap`` and ``moe_dispatch="a2a"`` under a mesh.
-    The mesh axis itself runs: a point this process cannot build (a
-    2-device point, one rank) fails its rows as transient and the plan
-    takes the local point; a fixed mesh it cannot build is refused.  The
-    mesh axis is held in tests/test_torch_mesh_axis.py, the meshes
-    themselves in tests/test_torch_{sharding,distributed}.py."""
+    """Nothing of the mesh axis is pending any more.  The mesh axis runs:
+    a point this process cannot build (a 2-device point, one rank) fails
+    its rows as transient and the plan takes the local point; a fixed
+    mesh it cannot build is refused.  The sharded model paths run on a
+    (1, 1) mesh: an engine under ``decode_shardmap``
+    and one under ``moe_dispatch="a2a"`` serve the same tokens as the
+    meshless engine of the same plan.  The mesh axis is held in
+    tests/test_torch_mesh_axis.py, the meshes themselves in
+    tests/test_torch_{sharding,distributed,optimizations}.py."""
     from repro_torch.core.meshspec import LOCAL, MeshUnsatisfiable
     from repro_torch.core.plan import uniform_plan
     from repro_torch.launch.mesh import destroy_group, device_mesh
@@ -607,22 +609,25 @@ def test_later_axes_raise_naming_their_roadmap_item(tmp_path):
     assert rep.n_failed == rep.n_combinations // 2
     with pytest.raises(MeshUnsatisfiable, match="needs 2"):
         ComParTuner(cfg, shape, device="cpu", mesh={"data": 2})
-    params = init_params(model_specs(cfg), torch.Generator().manual_seed(0),
-                         "cpu")
+    reqs = [{"rid": "a", "prompt": (1, 2), "max_new_tokens": 2},
+            {"rid": "b", "prompt": (3, 4, 5), "max_new_tokens": 3}]
+    moe = get_arch("qwen3-moe-30b-a3b").smoke()
+    cases = [(cfg, uniform_plan(cfg, "tensor_par", clause=SegmentClause(
+        decode_shardmap=True))),
+        (moe, uniform_plan(moe, "expert_par", clause=SegmentClause(
+            moe_dispatch="a2a")))]
     try:
         mesh = device_mesh((1, 1), ("data", "model"), "cpu")
-        for clause in (SegmentClause(decode_shardmap=True),):
-            eng = ServeEngine(cfg, uniform_plan(cfg, "tensor_par",
-                                                clause=clause),
-                              params=params, mesh=mesh, device="cpu")
-            with pytest.raises(NotImplementedError, match=r"4\(b\)"):
-                eng.run([{"rid": "a", "prompt": (1, 2), "max_new_tokens": 2}])
-        moe = get_arch("qwen3-moe-30b-a3b").smoke()
-        eng = ServeEngine(moe, uniform_plan(
-            moe, "expert_par", clause=SegmentClause(moe_dispatch="a2a")),
-            mesh=mesh, device="cpu")
-        with pytest.raises(NotImplementedError, match=r"4\(b\)"):
-            eng.run([{"rid": "a", "prompt": (1, 2), "max_new_tokens": 2}])
+        for c, p in cases:
+            params = init_params(model_specs(c),
+                                 torch.Generator().manual_seed(0), "cpu")
+            meshed = ServeEngine(c, p, params=params, mesh=mesh,
+                                 device="cpu").run(reqs)
+            meshless = ServeEngine(c, p, params=params,
+                                   device="cpu").run(reqs)
+            assert {k: r.tokens for k, r in meshed.items()} == \
+                {k: r.tokens for k, r in meshless.items()}, c.name
+            assert all(len(r.tokens) for r in meshed.values())
     finally:
         destroy_group()
 
