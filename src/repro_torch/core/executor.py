@@ -41,6 +41,7 @@ from repro_torch.core.cost_model import (H100, CostTerms, Hardware,
 from repro_torch.core.segment import Segment
 from repro_torch.core.timer import segment_program
 from repro_torch.device import resolve_device
+from repro_torch.runtime import trace
 
 
 class CombinationFailed(Exception):
@@ -355,30 +356,34 @@ class WallClockExecutor:
 
     def _measure(self, cfg, shape, seg, combo, knobs, mesh):
         cuda = self.device.type == "cuda"
-        fn, args = segment_program(cfg, shape, seg, combo,
-                                   device=self.device, knobs=knobs,
-                                   mesh=mesh)
-        out = fn(*args)                             # warm-up
-        if cuda:
-            torch.cuda.synchronize(self.device)
-        del out
-        times, events = [], []
-        for _ in range(self.repeats):
+        with trace.span("score.build"):
+            fn, args = segment_program(cfg, shape, seg, combo,
+                                       device=self.device, knobs=knobs,
+                                       mesh=mesh)
+        # lend: a program's backward opens spans on autograd's device thread
+        with trace.span("score.warmup", lend=True):
+            out = fn(*args)
             if cuda:
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                out = fn(*args)
-                end.record()
-                events.append((start, end))
-            else:
-                t0 = time.perf_counter()
-                out = fn(*args)
-                times.append(time.perf_counter() - t0)
+                torch.cuda.synchronize(self.device)
             del out
-        if cuda:
-            torch.cuda.synchronize(self.device)
-            times = [s.elapsed_time(e) / 1e3 for s, e in events]
+        times, events = [], []
+        with trace.span("score.timed", lend=True):
+            for _ in range(self.repeats):
+                if cuda:
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    out = fn(*args)
+                    end.record()
+                    events.append((start, end))
+                else:
+                    t0 = time.perf_counter()
+                    out = fn(*args)
+                    times.append(time.perf_counter() - t0)
+                del out
+            if cuda:
+                torch.cuda.synchronize(self.device)
+                times = [s.elapsed_time(e) / 1e3 for s, e in events]
         return times
 
     def score_segment(self, cfg: ArchConfig, shape: ShapeConfig,
@@ -392,23 +397,30 @@ class WallClockExecutor:
                                  "nothing (use the dry run)")
         mesh = _job_mesh(self, mesh)
         cuda = self.device.type == "cuda"
-        if cuda:
-            torch.cuda.synchronize(self.device)
-            torch.cuda.reset_peak_memory_stats(self.device)
-        err = None
-        try:
-            with deadline(self.timeout_s):
-                times = self._measure(cfg, shape, seg, combo, knobs, mesh)
-        except Exception as e:
-            err = _failure(e)
-        # the job's tensors die with _measure's frame (the failure keeps
-        # no traceback): hand their blocks back before the next job
-        gc.collect()
-        peak = 0
-        if cuda:
-            torch.cuda.synchronize(self.device)
-            peak = torch.cuda.max_memory_allocated(self.device)
-            torch.cuda.empty_cache()
+        with trace.span("score.job", counted=True, segment=seg.name,
+                        cid=combo.cid):
+            if cuda:
+                torch.cuda.synchronize(self.device)
+                torch.cuda.reset_peak_memory_stats(self.device)
+            err = None
+            try:
+                with deadline(self.timeout_s):
+                    times = self._measure(cfg, shape, seg, combo, knobs,
+                                          mesh)
+            except Exception as e:
+                err = _failure(e)
+            peak = 0
+            with trace.span("score.release"):
+                # the job's tensors die with _measure's frame (the failure
+                # keeps no traceback): hand their blocks back before the
+                # next job
+                with trace.span("score.gc"):
+                    gc.collect()
+                with trace.span("score.free"):
+                    if cuda:
+                        torch.cuda.synchronize(self.device)
+                        peak = torch.cuda.max_memory_allocated(self.device)
+                        torch.cuda.empty_cache()
         if err is not None:
             raise err
         wall = statistics.median(times)

@@ -56,6 +56,7 @@ from repro_torch.core.plan import Plan
 from repro_torch.core.providers import all_providers, get_provider
 from repro_torch.core.segment import Segment, fragment
 from repro_torch.device import resolve_device
+from repro_torch.runtime import trace
 from repro_torch.runtime.sharding import mesh_axis_sizes
 
 log = logging.getLogger("repro_torch.tuner")
@@ -258,6 +259,7 @@ class ComParTuner:
         self._engines: Dict[Tuple, object] = {}
 
     # ------------------------------------------------------------------
+    @trace.traced("sweep")
     def sweep(self, providers: Optional[Sequence[str]] = None,
               clause_space=None, *,
               spec: Optional[SweepSpec] = None,

@@ -41,6 +41,7 @@ from repro_torch.kernels.flash_decode import flash_decode_fwd
 from repro_torch.kernels.mlstm import mlstm_fwd
 from repro_torch.kernels.rglru import rglru_fwd
 from repro_torch.kernels.rmsnorm import rmsnorm_fwd
+from repro_torch.runtime import trace
 from repro_torch.runtime.sharding import on_shards
 
 
@@ -62,8 +63,9 @@ def _define(name: str, schema: str, *, cpu, cuda, fake, flops,
     """Register ``repro_torch::name``: its CPU and CUDA implementations,
     its fake implementation (which also serves the meta device, and
     refuses every device without a kernel), its flop formula and, given
-    the plain math ``backward(*tensors, *args)``, its gradient.  The
-    schema lists the tensors first.  Returns the operator."""
+    the plain math ``backward(*tensors, *args)``, its gradient, which runs
+    in the tracer's span ``kernels.<name>.bwd`` (``runtime/trace.py``).
+    The schema lists the tensors first.  Returns the operator."""
     qual = f"repro_torch::{name}"
     torch.library.define(qual, schema)
     torch.library.impl(qual, "cpu", cpu)
@@ -82,9 +84,12 @@ def _define(name: str, schema: str, *, cpu, cuda, fake, flops,
             ctx.save_for_backward(*inputs[:n])
             ctx.args = inputs[n:]
 
+        bwd = f"kernels.{name}.bwd"
+
         def grad(ctx, g):
-            return (*_vjp(lambda *ts: backward(*ts, *ctx.args),
-                          ctx.saved_tensors, g), *[None] * len(ctx.args))
+            with trace.span(bwd):
+                return (*_vjp(lambda *ts: backward(*ts, *ctx.args),
+                              ctx.saved_tensors, g), *[None] * len(ctx.args))
         torch.library.register_autograd(qual, grad,
                                         setup_context=setup_context)
     return op.default

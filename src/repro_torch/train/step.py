@@ -24,6 +24,7 @@ from repro_torch.models.params import (DTYPES, TensorSpec, abstract_params,
                                        place_params, tree_leaves, tree_map)
 from repro_torch.optim.adamw import (AdamWState, adamw_abstract_state,
                                      adamw_init, adamw_update, cosine_lr)
+from repro_torch.runtime import trace
 from repro_torch.runtime.sharding import (Sharding, full, is_device_mesh,
                                           mesh_scope, placements)
 
@@ -106,6 +107,10 @@ def make_grads(cfg: ArchConfig, plan: Plan, *, device="cuda", mesh=None):
     :func:`init_train_state` and :func:`place_batch`), and so are the
     grads: each in the layout autograd gives it (a replicated leaf's grad
     may be ``Partial``); the update redistributes it to its leaf's.
+
+    With the tracer on (``runtime/trace.py``) each call is the span
+    ``train.grads``, holding ``train.forward`` (the forward and the loss)
+    and ``train.backward`` (``torch.autograd.grad``).
     """
     resolve_device(device)
     ctxs = build_contexts(cfg, plan, mesh)
@@ -113,18 +118,22 @@ def make_grads(cfg: ArchConfig, plan: Plan, *, device="cuda", mesh=None):
     meshed = ctxs[SEG_EMBED].meshed
 
     def grads_of(params, batch):
-        with mesh_scope(meshed):          # the backward meets plain tensors
+        # mesh_scope: the backward meets plain tensors
+        with trace.span("train.grads"), mesh_scope(meshed):
             return _grads_of(params, batch)
 
     def _grads_of(params, batch):
-        logits, aux = forward(params, batch, cfg, ctxs)
-        loss, metrics = softmax_xent(logits, batch["targets"])
-        total = loss + AUX_LOSS_WEIGHT * aux
+        with trace.span("train.forward"):
+            logits, aux = forward(params, batch, cfg, ctxs)
+            loss, metrics = softmax_xent(logits, batch["targets"])
+            total = loss + AUX_LOSS_WEIGHT * aux
         leaves = tree_leaves(params)
         unread = params[SEG_EMBED]["tok"] \
             if "embeds" in batch and not cfg.tie_embeddings else None
-        got = iter(torch.autograd.grad(
-            total, [t for t in leaves if t is not unread]))
+        # the kernel ops' backward spans open on autograd's device thread
+        with trace.span("train.backward", lend=True):
+            got = iter(torch.autograd.grad(
+                total, [t for t in leaves if t is not unread]))
         grads = [torch.zeros_like(t) if t is unread else next(got)
                  for t in leaves]
         metrics = {k: full(t.detach())
@@ -146,11 +155,19 @@ def make_train_step(cfg: ArchConfig, plan: Plan, *, device="cuda",
     first axis into mb microbatches whose gradients are summed in f32 and
     divided by mb; the loss is the mean over microbatches and the other
     metrics are the last microbatch's, as in the reference.
+
+    With the tracer on (``runtime/trace.py``) each call is the span
+    ``train.step`` (counted), holding one ``train.grads`` per microbatch
+    and ``train.optimizer``.
     """
     grads_of = make_grads(cfg, plan, device=device, mesh=mesh)
     mb = plan.knobs.microbatches
 
     def train_step(params, opt_state, batch):
+        with trace.span("train.step", counted=True, step=opt_state.step):
+            return _train_step(params, opt_state, batch)
+
+    def _train_step(params, opt_state, batch):
         if mb > 1:
             # every batch has targets; a frontend batch has embeds, no
             # tokens
@@ -173,9 +190,10 @@ def make_train_step(cfg: ArchConfig, plan: Plan, *, device="cuda",
             loss, metrics, grads = grads_of(params, batch)
         lr = cosine_lr(opt_state.step, peak_lr=peak_lr, warmup=warmup,
                        total=total_steps)
-        params, opt_state, opt_metrics = adamw_update(
-            grads, opt_state, params, lr=lr, weight_decay=weight_decay,
-            clip_norm=clip_norm)
+        with trace.span("train.optimizer"):
+            params, opt_state, opt_metrics = adamw_update(
+                grads, opt_state, params, lr=lr, weight_decay=weight_decay,
+                clip_norm=clip_norm)
         return params, opt_state, dict(metrics, **opt_metrics,
                                        total_loss=loss)
 

@@ -604,6 +604,44 @@ def test_train_grads_cuda_plan_match_plain_plan(dev, dtype):
         assert _rel_l2(g, w) < GRAD_REL_L2[dtype]
 
 
+def test_train_step_spans_on_the_card(dev):
+    """The program's tracer on one granite-8b step (full width, 2 layers,
+    bf16, B=1, S=1024) under a cuda plan: every flash-attention backward
+    span sits under ``train.backward`` with device time, and the device ms
+    of ``train.forward`` and ``train.backward`` come within 5 % of
+    ``train.grads``'s."""
+    from repro_torch.runtime import trace
+    cfg = dataclasses.replace(get_arch("granite-8b"), num_layers=2,
+                              dtype="bfloat16")
+    plan = _plan(cfg, "cuda")
+    params, opt = init_train_state(cfg, plan,
+                                   torch.Generator().manual_seed(0), dev)
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (1, 1025))).to(dev)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    step = make_train_step(cfg, plan, device=dev, warmup=0)
+    params, opt, _ = step(params, opt, batch)       # builds the kernels
+    trace.clear()
+    trace.enable(device_timing=True)
+    try:
+        step(params, opt, batch)
+        spans = trace.export()
+    finally:
+        trace.disable()
+        trace.clear()
+    by_id = {s["id"]: s for s in spans}
+    one = {s["name"]: s for s in spans}
+    fa = [s for s in spans if s["name"] == "kernels.flash_attention.bwd"]
+    assert len(fa) == cfg.num_layers
+    for s in fa:
+        assert by_id[s["parent"]]["name"] == "train.backward"
+        assert s["device_ms"] > 0
+    assert one["train.step"]["counters"]["alloc.device_mallocs"] >= 0
+    parts = one["train.forward"]["device_ms"] + \
+        one["train.backward"]["device_ms"]
+    assert parts == pytest.approx(one["train.grads"]["device_ms"], rel=0.05)
+
+
 def test_moe_train_grads_cuda_plan_match_plain_plan(dev):
     """qwen3-moe-30b-a3b at full width cut to 2 layers, f32, B=1, S=256:
     logits and step-0 grads of the "cuda" plan against the "plain" plan,
