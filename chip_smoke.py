@@ -20,7 +20,13 @@ phases (each failure exits non-zero and prints no result line):
             musicgen-large's (H 32, KV 32, D 64), f32 (the FMA route) and
             bf16 (the wgmma route: each bf16 row's route and, by the
             profiler, its kernel's name), with TFLOP/s, against
-            ``scaled_dot_product_attention``; flash-decode at granite-8b's
+            ``scaled_dot_product_attention``; flash-attention's backward
+            kernel at the two train cells' shapes (granite-8b B=2,
+            S=4096; starcoder2-3b S=8192, window 4096), bf16: the
+            forward's log-sum-exp against the plain one's, dq, dk, dv
+            against the op's plain backward on the same inputs, three CUDA
+            kernels a call, timed against the plain backward and SDPA's
+            backward; flash-decode at granite-8b's
             heads (B=1 at pos 0, 17, 63 and 4095; B=8 at pos 4095; the
             tune path's B=8, Smax=2048 at pos 0 and 1024), at
             recurrentgemma-2b's (G=10, D=256) and at the two MoE archs'
@@ -794,6 +800,105 @@ def _fa_checks(torch, rand, rows, failures, H, KV, D, cases):
             del q, k, v, got, want, live
 
 
+def _fa_bwd_checks(torch, rand, rows, failures, B, S, H, KV, D, window):
+    """flash-attention's backward kernel at a train shape, bf16 and causal:
+    the forward's log-sum-exp against the plain one's, and dq, dk, dv
+    against the op's plain backward (autograd of the q-chunked plain
+    attention in f32) on the same inputs; kernel, plain and SDPA backward
+    times, and the CUDA kernels of one call."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.flash_attention import (bwd_route,
+                                                     flash_attention_bwd,
+                                                     flash_attention_fwd)
+
+    dt = torch.bfloat16
+    # model layout (B,S,H,D), passed head-major as views
+    q, g = rand((B, S, H, D), dt), rand((B, S, H, D), dt)
+    k, v = rand((B, S, KV, D), dt), rand((B, S, KV, D), dt)
+    hm = [t.transpose(1, 2) for t in (q, k, v, g)]
+    out, lse = flash_attention_fwd(*hm[:3], causal=True, window=window,
+                                   return_lse=True)
+    _, lse_want = R.flash_attention_ref(*hm[:3], causal=True, window=window,
+                                        return_lse=True)
+
+    def kernel():
+        return flash_attention_bwd(hm[3], *hm[:3], out, lse, causal=True,
+                                   window=window)
+
+    def plain():
+        return ops._vjp(lambda *ts: ops._fa_plain(*ts, True, window, 512),
+                        (q, k, v), g)
+    got = [t.transpose(1, 2) for t in kernel()]
+    want = plain()
+    torch.cuda.synchronize()
+    lerr, ok = max_err(torch, lse, lse_want, "float32", tol=(1e-3, 1e-4))
+    errs, rel = [], []
+    for a, b in zip(got, want):
+        err, good = max_err(torch, a, b, "bfloat16")
+        errs.append(err)
+        rel.append(float((a.float() - b.float()).norm() / b.float().norm()))
+        ok = ok and good
+    del got, want, lse_want
+    i = torch.arange(S, device="cuda")
+    if window and window < S:
+        mask = dict(attn_mask=(i[:, None] >= i[None, :])
+                    & (i[:, None] - i[None, :] < window))
+    else:
+        mask = dict(is_causal=True)
+    xs = [t.detach().requires_grad_() for t in hm[:3]]
+    sdpa_out = F.scaled_dot_product_attention(*xs, **mask, enable_gqa=True)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(sdpa_out, xs, hm[3], retain_graph=True)
+    ms = cuda_ms(torch, kernel)
+    dev_ms, kernels = device_ms(torch, kernel)
+    plain_ms = cuda_ms(torch, plain, reps=3, warmup=1)
+    lib = cuda_ms(torch, sdpa_bwd, reps=5)
+    lib_dev, _ = device_ms(torch, sdpa_bwd, calls=5)
+    del sdpa_out, xs, mask
+    pairs = ops.attention_pairs(S, S, True, window)
+    flops = 10 * B * H * D * pairs
+    # q, k, v, dO read and dq, dk, dv written once; the bound's operations
+    # are the forward's two products twice, as fa_bwd_roofline counts them
+    nbytes = B * S * D * (3 * H + 4 * KV) * 2
+    bms, by = bound_ms(nbytes, 2 * 4 * B * H * D * pairs, "bfloat16")
+    path = bwd_route(dt, D)
+    per_call = sum(n["launches"] for n in kernels.values()) \
+        if kernels else None
+    # the wgmma route runs the hand kernel, as the profiler names it
+    if path != "wgmma" or not any("fa_bwd_kernel" in kn for kn in kernels):
+        ok = False
+        log(f"flash_attention_bwd D={D}: route {path}, kernels "
+            f"{sorted(kernels)}: not the backward kernel")
+    rows.append(dict(kernel="flash_attention_bwd", dtype="bfloat16", B=B,
+                     S=S, D=D, H=H, KV=KV, window=window,
+                     max_abs_err=max(errs), grad_max_abs_err=errs,
+                     grad_rel_l2=rel, lse_max_abs_err=lerr, ok=ok, ms=ms,
+                     device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib,
+                     library_device_ms=lib_dev, bound_ms=bms, bound_by=by,
+                     cuda_route=path, cuda_kernels=sorted(kernels),
+                     cuda_kernels_per_call=per_call,
+                     tflops=flops / dev_ms * 1e-9))
+    log(f"flash_attention_bwd bf16 B={B} H={H} KV={KV} D={D} S={S} "
+        f"window={window} [{path}]: grad max_abs_err dq/dk/dv "
+        f"{', '.join(f'{e:.3g}' for e in errs)} (rel L2 "
+        f"{', '.join(f'{r:.3g}' for r in rel)}), lse {lerr:.3g} "
+        f"({'ok' if ok else 'FAIL'}) kernel={ms:.4f}ms device={dev_ms:.4f}ms "
+        f"({flops / dev_ms * 1e-9:.1f} TFLOP/s) plain={plain_ms:.4f}ms "
+        f"sdpa_bwd={lib:.4f}ms device={lib_dev:.4f}ms bound={bms:.4f}ms "
+        f"({by}, {100 * bms / dev_ms:.2f} % of it); CUDA kernels per call "
+        f"{kernels}")
+    if not ok:
+        failures.append(f"flash_attention_bwd D={D} S={S} w={window}")
+    if per_call is not None and per_call != 3:
+        failures.append(f"flash_attention_bwd D={D} S={S}: {per_call} CUDA "
+                        f"kernels per call, not 3")
+    del q, k, v, g, hm, out, lse
+
+
 def _fd_checks(torch, rand, rows, failures, H, KV, D, cases):
     """flash-decode against its plain version at (H, KV, D) for each (B,
     Smax, pos) of ``cases``, f32 and bf16: kernel, plain and SDPA times,
@@ -899,6 +1004,10 @@ def phase_kernels(torch, state):
                ((4096, 4096), (8192, 4096)))
     _fa_checks(torch, rand, rows, failures, 32, 32, 96, ((2048, 0),))
     _fa_checks(torch, rand, rows, failures, 32, 32, 64, ((2048, 0),))
+    # the backward kernel at the two train cells' shapes: granite-8b (B=2,
+    # S=4096) and starcoder2-3b (S=8192 past its window 4096)
+    _fa_bwd_checks(torch, rand, rows, failures, 2, 4096, H, KV, D, 0)
+    _fa_bwd_checks(torch, rand, rows, failures, 1, 8192, 24, 2, 128, 4096)
 
     # flash decode at granite-8b's heads (admission is B=1, pos ~63; long
     # caches at B=1 and 8; the tune phase's serving shape, B=8 and
@@ -2086,9 +2195,11 @@ def _train_dense(torch, state):
     """DENSE_TRAIN at full width cut to DENSE_TRAIN_LAYERS layers, B=1,
     S=DENSE_TRAIN_S, bf16, remat "dots", from its pipeline's ``embeds``:
     step-0 grads of the "cuda" plan against the "plain" plan, and the cuda
-    plan's flash-attention launches (a forward and a recompute a layer)."""
+    plan's flash-attention launches (a forward and a recompute a layer, and
+    a backward kernel a layer where ``bwd_route`` takes the arch)."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.flash_attention import bwd_route
     from repro_torch.models.model import model_specs
     from repro_torch.models.params import init_params, tree_map
 
@@ -2107,6 +2218,8 @@ def _train_dense(torch, state):
     launches = dict(LAUNCHES)
     state.setdefault("launches", {})[f"train {cfg.name}"] = launches
     want = {"flash_attention": 2 * cfg.num_layers}
+    if bwd_route(getattr(torch, cfg.dtype), cfg.head_dim_) == "wgmma":
+        want["flash_attention_bwd"] = cfg.num_layers
     log(f"train {cfg.name} {cfg.num_layers} layers: launches {launches} "
         f"(the cuda plan's grads; the plain plan's launch none)")
     if {k: n for k, n in launches.items() if n} != want:
@@ -2266,7 +2379,8 @@ def _train_granite(torch, state):
                            f"(a forward and a recompute per layer)")
 
     # where the step goes: one layer's flash-attention forward and backward
-    # (the backward is autograd of the plain f32 attention), the head's
+    # (the backward kernel, or the plain f32 attention's autograd where
+    # ``bwd_route`` says so), the head's
     # product with its backward (f32 copies under grad), and one AdamW
     # update with the peak of its temporaries (CUDA events; launches here
     # are not the path's)
@@ -2537,9 +2651,15 @@ def _job_launch_gates(cfg, tuner, space, per_job):
     ``space``, and each job's launches match its clause: every kernel 0
     under ``plain``; under ``cuda``, each attention and recurrent layer
     launches flash-attention and rglru once per call (twice under remat,
-    whose backward reruns the forward), and nothing else."""
+    whose backward reruns the forward), each attention layer the
+    flash-attention backward kernel once per call where its route takes
+    the arch (``bwd_route``), and nothing else."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import bwd_route
     calls = 1 + tuner.executor.repeats         # the warm-up and the timed
     groups = cfg.stack_plan()
+    bwd = bwd_route(getattr(torch, cfg.dtype), cfg.head_dim_) == "wgmma"
     fail = [f"g{g}/{r}/{k}: no job scored" for g in range(len(groups))
             for r in space["remat"] for k in space["kernel"]
             if f"g{g}/{r}/{k}" not in per_job]
@@ -2552,6 +2672,9 @@ def _job_launch_gates(cfg, tuner, space, per_job):
             want["flash_attention"] = group.pattern.count("attn") * \
                 per_call * calls
             want["rglru"] = group.pattern.count("rec") * per_call * calls
+            if bwd:
+                want["flash_attention_bwd"] = group.pattern.count("attn") * \
+                    group.repeats * calls
         if got != want:
             fail.append(f"{key}: launches {got}, expected {want}")
     return fail
@@ -4383,6 +4506,16 @@ KERNELS = {
                          "mesh prefill granite-8b fsdp",
                          "mesh train granite-8b", "mesh sweep granite-8b",
                          f"mesh a2a {MOE}")),
+    # the reference has no backward kernel: its op's custom_vjp
+    # differentiates the plain attention (``_ref``)
+    "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/ops.py:42",
+                            ("train granite-8b", f"train {MOE}",
+                             f"train {DENSE_TRAIN}", "sweep granite-8b",
+                             "tune lint granite-8b",
+                             "backends stablelm-3b sequential",
+                             "backends stablelm-3b", "mesh train granite-8b",
+                             "mesh sweep granite-8b")),
     "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
                      "src/repro/kernels/flash_decode.py:58",
                      ("serve granite-8b", f"serve {MOE}",
@@ -4402,7 +4535,8 @@ KERNELS = {
                 "src/repro/kernels/rmsnorm.py:18", ()),
 }
 # the hand-written kernels' symbols, as the profiler names them
-PORT_KERNELS = r"\b(fa_fwd|fa_wgmma|fd|rglru|mlstm_\w+|rmsnorm)_kernel\b"
+PORT_KERNELS = (r"\b(fa_fwd|fa_wgmma|fa_bwd(_prep|_dq)?|fd|rglru|mlstm_\w+|"
+                r"rmsnorm)_kernel\b")
 NUMBERS = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
            "bound_by", "library_ms", "library_device_ms")
 
@@ -4412,7 +4546,8 @@ def kernels_line(state):
 
     ``launches`` sums a kernel's launches over the paths this run drove
     (``launches_by_path``).  flash-attention's numbers are at granite-8b's
-    prefill shape, and at recurrentgemma-2b's under ``at_head_dim_256``.
+    prefill shape, and at recurrentgemma-2b's under ``at_head_dim_256``;
+    its backward kernel's at granite-8b's train shape (B=2, S=4096).
     """
     rows = state["kernel_checks"]
     paths = state.get("launches", {})
@@ -4431,6 +4566,7 @@ def kernels_line(state):
     main_rows = {
         "flash_attention": pick("flash_attention", dtype="bfloat16", S=2048,
                                 window=0, D=128, KV=8),
+        "flash_attention_bwd": pick("flash_attention_bwd", S=4096, H=32),
         "flash_decode": pick("flash_decode", dtype="bfloat16", B=1,
                              Smax=2048, pos=63, H=32, KV=8),
         "rglru": pick("rglru", S=2048, decay="model"),
@@ -4481,6 +4617,14 @@ def kernels_line(state):
                 r = pick_row("flash_decode", dtype="bfloat16", **kw)
                 entry[key] = {k: r[k] for k in NUMBERS + (
                     "host_ms", "plan", "cuda_kernels_per_call")}
+        if name == "flash_attention_bwd":
+            extra = ("grad_rel_l2", "lse_max_abs_err",
+                     "cuda_kernels_per_call")
+            entry.update({k: pick_row("flash_attention_bwd", S=4096,
+                                      H=32)[k] for k in extra})
+            entry["at_starcoder2_S8192_window4096"] = {
+                k: pick_row("flash_attention_bwd", S=8192, H=24)[k]
+                for k in NUMBERS + extra}
         if name == "rglru":
             entry["cuda_kernels_per_call"] = pick_row(
                 "rglru", S=2048, decay="model")["cuda_kernels_per_call"]

@@ -46,7 +46,10 @@ MLSTM_MAX_DH = 512
 #: each source's own ``-D`` flags
 DEFINES = {"mlstm": (f"-DREPRO_MLSTM_MAX_DH={MLSTM_MAX_DH}",)}
 
-LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+#: one key per kernel op; flash-attention's backward kernel is in the
+#: flash_attention source
+LAUNCHES: Dict[str, int] = {name: 0 for name in (*SOURCES,
+                                                 "flash_attention_bwd")}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FNS: Dict[tuple, object] = {}

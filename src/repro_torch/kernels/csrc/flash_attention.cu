@@ -1,4 +1,5 @@
-// Causal / sliding-window GQA flash-attention forward for Hopper (sm_90a).
+// Causal / sliding-window GQA flash-attention forward for Hopper (sm_90a),
+// and the backward of its wgmma route.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
 // (flash_attention_fwd / _kernel).  Same function: S = (q * D^-0.5) k^T,
@@ -6,7 +7,14 @@
 // state (m, l, acc) is f32, l is clamped at 1e-30, and the output is
 // written in q's dtype.  Query head h reads kv head h / G.  Any Sq and Sk
 // are accepted (the ragged tile is masked), and q/k/v/o are read through
-// their strides (the model's (B,S,H,D) tensors, transposed).
+// their strides (the model's (B,S,H,D) tensors, transposed).  Given a
+// pointer, both routes also write each row's log-sum-exp m + log(l) (f32,
+// natural log) for the backward.
+//
+// The backward (fa_bwd_*, after the forward's wgmma route below) replaces
+// no TPU kernel: the reference differentiates its plain attention.  It is
+// bound by operations too (five products, 2.5 times the forward's), and is
+// laid out for the tensor cores as the forward is.
 //
 // Bound.  At granite-8b's prefill shape (S=2048, H=32, KV=8, D=128, bf16,
 // causal) the work is ~34 GFLOP of products against ~42 MB of q/k/v/o:
@@ -85,7 +93,8 @@ constexpr size_t smem_bytes() {
 template <typename T, int D>
 __global__ void __launch_bounds__(NT) fa_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ o, int G, int Sq, int Sk,
+    const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+    int G, int Sq, int Sk,
     int64_t q_sb, int64_t q_sh, int64_t q_ss, int64_t k_sb, int64_t k_sh,
     int64_t k_ss, int64_t v_sb, int64_t v_sh, int64_t v_ss, int64_t o_sb,
     int64_t o_sh, int64_t o_ss, int causal, int window, float scale) {
@@ -221,14 +230,17 @@ __global__ void __launch_bounds__(NT) fa_fwd_kernel(
 #pragma unroll
       for (int jj = 0; jj < ND; ++jj)
         ob[row * o_ss + tx + 8 * jj] = from_f<T>(acc[i][jj] * inv);
+      if (lse != nullptr && tx == 0)
+        lse[((int64_t)b * gridDim.y + h) * Sq + row] =
+            m_i[i] + logf(fmaxf(l_i[i], 1e-30f));
     }
   }
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int H, int KV, int Sq, int Sk, const int64_t* st, int causal,
-           int window, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int H, int KV, int Sq, int Sk, const int64_t* st,
+           int causal, int window, float scale, cudaStream_t stream) {
   constexpr int BQ = block_q<D>();
   const size_t smem = smem_bytes<D>();
   // once per instantiation: opt in to more than 48 KB of shared memory
@@ -239,9 +251,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
   fa_fwd_kernel<T, D><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H / KV, Sq, Sk, st[0],
-      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10],
-      st[11], causal, window, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, H / KV, Sq, Sk,
+      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
+      st[10], st[11], causal, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -252,6 +264,7 @@ namespace wgmma_route {
 using repro::NEG_INF;
 
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 constexpr int PRODUCER_REGS = 24;
 constexpr int CONSUMER_REGS = 240;
 
@@ -379,6 +392,11 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 #define FA_F48(i) FA_F40(i), FA_F8(i + 40)
 #define FA_F56(i) FA_F40(i), FA_F8(i + 40), FA_F8(i + 48)
 #define FA_F64(i) FA_F32(i), FA_F32(i + 32)
+// the same, written only (a product that overwrites its accumulator)
+#define FA_W8(i)                                                     \
+  "=f"(d[i]), "=f"(d[i + 1]), "=f"(d[i + 2]), "=f"(d[i + 3]),         \
+      "=f"(d[i + 4]), "=f"(d[i + 5]), "=f"(d[i + 6]), "=f"(d[i + 7])
+#define FA_W32(i) FA_W8(i), FA_W8(i + 8), FA_W8(i + 16), FA_W8(i + 24)
 #define FA_F128(i) FA_F64(i), FA_F64(i + 64)
 
 // wgmma m64nNk16, f32 += bf16 x bf16, accumulating into d (N/2 registers a
@@ -398,6 +416,44 @@ template <> struct Wgmma<64> {
         "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
         : FA_F32(0)
         : "l"(a), "l"(b), "r"(1));
+  }
+  // the same, d = A B (d is only written)
+  __device__ static void ss_init(float (&d)[32], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : FA_W32(0)
+        : "l"(a), "l"(b), "r"(0));
+  }
+  // both operands MN-major (transposed) in shared memory
+  __device__ static void ss_tt(float (&d)[32], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+        : FA_F32(0)
+        : "l"(a), "l"(b), "r"(1));
+  }
+  __device__ static void ss_tt_init(float (&d)[32], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+        : FA_W32(0)
+        : "l"(a), "l"(b), "r"(0));
   }
   __device__ static void rs(float (&d)[32], const uint32_t (&a)[4],
                           uint64_t b) {
@@ -534,6 +590,8 @@ template <> struct Wgmma<256> {
 #undef FA_F56
 #undef FA_F64
 #undef FA_F128
+#undef FA_W8
+#undef FA_W32
 
 template <int D>
 __global__ void __launch_bounds__(128 * (Cfg<D>::NWG + 1), 1)
@@ -541,8 +599,9 @@ __global__ void __launch_bounds__(128 * (Cfg<D>::NWG + 1), 1)
                     const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv,
                     __nv_bfloat16* __restrict__ o, int64_t o_sb,
-                    int64_t o_sh, int64_t o_ss, int G, int Sq, int Sk,
-                    int causal, int window, float scale_log2) {
+                    int64_t o_sh, int64_t o_ss, float* __restrict__ lse,
+                    int G, int Sq, int Sk, int causal, int window,
+                    float scale_log2) {
   using C = Cfg<D>;
   constexpr int BQ = C::BQ, BK = C::BK, NA = C::NA;
   extern __shared__ uint8_t smem_raw[];
@@ -762,6 +821,12 @@ __global__ void __launch_bounds__(128 * (Cfg<D>::NWG + 1), 1)
           *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n + cq) =
               __floats2bfloat162_rn(acc[4 * n + 2 * r] * inv,
                                     acc[4 * n + 2 * r + 1] * inv);
+        // the row's log-sum-exp in natural-log units, for the backward (a
+        // row with every key masked keeps m at the mask value, unscaled)
+        if (lse != nullptr && (t & 3) == 0)
+          lse[((int64_t)b * gridDim.x + h) * Sq + row] =
+              (m_i[r] == NEG_INF ? NEG_INF : m_i[r] * LN2) +
+              logf(fmaxf(l, 1e-30f));
       }
     }
   }
@@ -818,9 +883,9 @@ int make_map(CUtensorMap* map, const void* ptr, int B, int heads, int S,
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int H, int KV, int Sq, int Sk, const int64_t* st, int causal,
-           int window, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int H, int KV, int Sq, int Sk, const int64_t* st,
+           int causal, int window, float scale, cudaStream_t stream) {
   using C = Cfg<D>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       fa_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -834,9 +899,477 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   dim3 grid(H, (Sq + C::BQ - 1) / C::BQ, B);
   fa_wgmma_kernel<D><<<grid, 128 * (C::NWG + 1), C::SMEM, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), st[9], st[10], st[11],
-      H / KV, Sq, Sk, causal, window, scale * LOG2E);
+      lse, H / KV, Sq, Sk, causal, window, scale * LOG2E);
   return (int)cudaGetLastError();
 }
+
+// ---- backward ----------------------------------------------------------------
+//
+// dQ, dK, dV of the function above from its output O and its log-sum-exp
+// (FA2 / FA3's backward, laid out for this card).  Three launches:
+//   fa_bwd_prep_kernel: Delta = rowsum(dO * O) in f32, the LSE times log2 e
+//     (+inf on the rows past Sq, so their P is 0), both padded to whole q
+//     tiles, and the f32 dQ accumulator zeroed;
+//   fa_bwd_kernel: one CTA per (k tile of BK = 128 keys, kv head, batch).  K
+//     and V stay in shared memory; one producer thread streams Q, dO and
+//     their LSE / Delta rows by TMA through a two-stage ring, for each of
+//     the G query heads of the kv head and each q tile that the causal /
+//     window mask leaves (whole masked tiles are skipped; only tiles that
+//     straddle a boundary evaluate the mask).  Two consumer warpgroups own
+//     64 keys each, so every product has the keys as its 64 rows:
+//       S^T = K Q^T, dP^T = V dO^T       (wgmma m64n64k16, ss)
+//       P^T = 2^(S^T scale log2 e - LSE log2 e), dS^T = P^T (dP^T - Delta)
+//       dV += P^T dO, dK += dS^T Q       (wgmma m64n{D}k16, P^T / dS^T as
+//                                         the register A operand)
+//       dQ[:, atom w] = dS K[:, atom w]  (m64n64k16, dS^T from shared
+//                                         memory, both operands MN-major)
+//     dK and dV stay in f32 registers across all G heads (no atomics); each
+//     warpgroup's 64-column slice of dQ goes through shared memory into the
+//     f32 accumulator by one bulk reduce-add (cp.reduce.async.bulk);
+//   fa_bwd_dq_kernel: dQ = scale * accumulator, in q's dtype.
+//   Contract in bf16: every product's operands are bf16 (P and dS rounded
+//   from f32, as the forward rounds p); accumulation, the LSE, Delta and the
+//   dQ accumulator are f32.
+
+template <int D>
+struct BwdCfg {
+  static constexpr int BK = 128;                       // keys per CTA
+  static constexpr int BQ = 64;                        // query rows a tile
+  static constexpr int DP = D <= 64 ? 64 : 128;        // smem width
+  static constexpr int NA = DP / 64;                   // 128-byte atoms
+  static constexpr int KC = (D + 15) / 16;             // k16 steps over D
+  static constexpr int STAGES = 2;                     // Q/dO ring depth
+  static constexpr uint32_t KV_BYTES = BK * DP * 2;    // K or V
+  static constexpr uint32_t Q_BYTES = BQ * DP * 2;     // one Q or dO tile
+  static constexpr uint32_t ROW_BYTES = BQ * 4;        // LSE or Delta rows
+  static constexpr uint32_t DS_BYTES = BK * BQ * 2;    // dS^T, bf16
+  static constexpr uint32_t DQ_BYTES = BQ * 64 * 4;    // one atom of dQ, f32
+  static constexpr size_t SMEM = 1024 + 2 * KV_BYTES +
+                                 STAGES * (2 * Q_BYTES + 2 * ROW_BYTES) +
+                                 2 * DS_BYTES + NA * DQ_BYTES +
+                                 (1 + 2 * STAGES) * 8;
+};
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// generic-proxy writes to shared memory, made visible to wgmma and bulk copies
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// contiguous bytes from global into shared memory, completing on an mbarrier
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// global[i] += shared[i] for `bytes` of f32, as one bulk operation
+__device__ __forceinline__ void bulk_reduce_add(float* dst, const float* src,
+                                                uint32_t bytes) {
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 "
+      "[%0], [%1], %2;\n" ::"l"(reinterpret_cast<uint64_t>(dst)),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// until this thread's bulk operations have read their shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+template <int D>
+__global__ void __launch_bounds__(256) fa_bwd_prep_kernel(
+    const __nv_bfloat16* __restrict__ o, int64_t o_sb, int64_t o_sh,
+    int64_t o_ss, const __nv_bfloat16* __restrict__ dout, int64_t d_sb,
+    int64_t d_sh, int64_t d_ss, const float* __restrict__ lse,
+    float* __restrict__ lse2, float* __restrict__ delta,
+    float* __restrict__ dq_acc, int Sq, int n_qt) {
+  using C = BwdCfg<D>;
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int H = gridDim.y;
+  const int part = threadIdx.x & 3;       // four threads a row
+  const int row = qt * C::BQ + (threadIdx.x >> 2);
+  float acc = 0.f;
+  if (row < Sq) {
+    const __nv_bfloat16* orow = o + b * o_sb + h * o_sh + row * o_ss;
+    const __nv_bfloat16* drow = dout + b * d_sb + h * d_sh + row * d_ss;
+    for (int c = part; c < D / 8; c += 4) {
+      float x[8], y[8];
+      repro::load8(orow + 8 * c, x);
+      repro::load8(drow + 8 * c, y);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc = fmaf(x[e], y[e], acc);
+    }
+  }
+  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+  const int64_t bh = (int64_t)b * H + h;
+  if (part == 0) {
+    delta[bh * n_qt * C::BQ + row] = acc;
+    lse2[bh * n_qt * C::BQ + row] =
+        row < Sq ? lse[bh * Sq + row] * LOG2E : __int_as_float(0x7f800000);
+  }
+  float4* z = reinterpret_cast<float4*>(dq_acc + (bh * n_qt + qt) * C::NA *
+                                                     C::BQ * 64);
+  for (int i = threadIdx.x; i < C::NA * C::BQ * 16; i += 256)
+    z[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+template <int D>
+__global__ void __launch_bounds__(384, 1)
+    fa_bwd_kernel(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  const __grid_constant__ CUtensorMap tdo,
+                  const float* __restrict__ lse2,
+                  const float* __restrict__ delta, float* __restrict__ dq_acc,
+                  __nv_bfloat16* __restrict__ dk, int64_t dk_sb,
+                  int64_t dk_sh, int64_t dk_ss,
+                  __nv_bfloat16* __restrict__ dv, int64_t dv_sb,
+                  int64_t dv_sh, int64_t dv_ss, int G, int Sq, int Sk,
+                  int n_qt, int causal, int window, float scale,
+                  float scale_log2) {
+  using C = BwdCfg<D>;
+  constexpr int BQ = C::BQ, BK = C::BK, NA = C::NA, NS = C::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sk = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* sv = sk + C::KV_BYTES;
+  uint8_t* sq = sv + C::KV_BYTES;                      // [NS]
+  uint8_t* sdo = sq + NS * C::Q_BYTES;                 // [NS]
+  uint8_t* sds = sdo + NS * C::Q_BYTES;                // [2] dS^T
+  float* sdq = reinterpret_cast<float*>(sds + 2 * C::DS_BYTES);   // [NA]
+  float* slse = sdq + NA * BQ * 64;                    // [NS][BQ]
+  float* sdel = slse + NS * BQ;                        // [NS][BQ]
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sdel + NS * BQ);
+  uint64_t* full = kv_full + 1;                        // [NS]
+  uint64_t* empty = full + NS;                         // [NS]
+
+  const int kb0 = blockIdx.x * BK;
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int H = gridDim.y * G;
+  // q tiles holding a row that sees a key of this tile
+  const int q_lo = causal ? kb0 : 0;
+  const int q_hi = window > 0 ? min(Sq, kb0 + BK - 1 + window) : Sq;
+  const int t_first = q_lo / BQ;
+  const int n_q = max(0, (q_hi + BQ - 1) / BQ - t_first);
+  const int n_it = G * n_q;                            // (head, q tile)s
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        PRODUCER_REGS));
+    if (tid == 0) {
+      mbar_expect_tx(kv_full, 2 * C::KV_BYTES);
+#pragma unroll
+      for (int a = 0; a < NA; ++a) {
+        tma_load(sk + a * BK * 128, &tk, kv_full, 64 * a, kb0, kvh, b);
+        tma_load(sv + a * BK * 128, &tv, kv_full, 64 * a, kb0, kvh, b);
+      }
+      for (int i = 0; i < n_it; ++i) {
+        const int st = i % NS;
+        const int h = kvh * G + i / n_q;
+        const int qt = t_first + i % n_q;
+        mbar_wait(empty + st, ((i / NS) & 1) ^ 1);
+        mbar_expect_tx(full + st, 2 * C::Q_BYTES + 2 * C::ROW_BYTES);
+#pragma unroll
+        for (int a = 0; a < NA; ++a) {
+          tma_load(sq + st * C::Q_BYTES + a * BQ * 128, &tq, full + st,
+                   64 * a, qt * BQ, h, b);
+          tma_load(sdo + st * C::Q_BYTES + a * BQ * 128, &tdo, full + st,
+                   64 * a, qt * BQ, h, b);
+        }
+        const int64_t row = ((int64_t)b * H + h) * n_qt * BQ + qt * BQ;
+        bulk_load(slse + st * BQ, lse2 + row, C::ROW_BYTES, full + st);
+        bulk_load(sdel + st * BQ, delta + row, C::ROW_BYTES, full + st);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        CONSUMER_REGS));
+    const int w = wg - 1;                  // keys kw0 .. kw0 + 63
+    const int t = tid - 128 * wg;
+    const int kw0 = kb0 + 64 * w;
+    // accumulator layout of wgmma m64nN: rows rk0 and rk0 + 8, columns
+    // 8n + cq and 8n + cq + 1 of every 8-column chunk n
+    const int rk0 = 16 * (t >> 5) + ((t & 31) >> 2);
+    const int cq = 2 * (t & 3);
+    const uint32_t k_addr = smem_u32(sk), v_addr = smem_u32(sv);
+
+    float dka[D / 2], dva[D / 2];
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) dka[j] = dva[j] = 0.f;
+    // descriptors of K and V: this warpgroup's rows K-major (S^T, dP^T),
+    // K's column atom w MN-major (dQ).  A k-step adds a constant to the
+    // address field (16-byte units).  The bases are made opaque in every
+    // iteration, so that the compiler recomputes each step's descriptor
+    // beside its wgmma instead of keeping all of them live in registers.
+    const uint64_t k_rows0 = desc(k_addr + 64 * w * 128, 16, 1024);
+    const uint64_t v_rows0 = desc(v_addr + 64 * w * 128, 16, 1024);
+    const uint64_t k_cols0 = desc(k_addr + w * BK * 128, BK * 128, 1024);
+
+    mbar_wait(kv_full, 0);
+    for (int i = 0; i < n_it; ++i) {
+      const int st = i % NS;
+      const int h = kvh * G + i / n_q;
+      const int qt = t_first + i % n_q;
+      const int q0 = qt * BQ;
+      const uint32_t q_addr = smem_u32(sq + st * C::Q_BYTES);
+      const uint32_t do_addr = smem_u32(sdo + st * C::Q_BYTES);
+      uint64_t k_rows = k_rows0, v_rows = v_rows0, k_cols = k_cols0;
+      asm volatile("" : "+l"(k_rows), "+l"(v_rows), "+l"(k_cols));
+      const uint64_t q_k = desc(q_addr, 16, 1024);     // Q, dO K-major
+      const uint64_t do_k = desc(do_addr, 16, 1024);
+      const uint64_t q_mn = desc(q_addr, BQ * 128, 1024);   // MN-major
+      const uint64_t do_mn = desc(do_addr, BQ * 128, 1024);
+
+      // the previous q tile's dQ reduce has read this warpgroup's buffer
+      // before anyone passes the barrier below and writes it again
+      if (t == 0) bulk_wait_read();
+
+      // S^T = K Q^T and dP^T = V dO^T, this warpgroup's 64 keys as rows
+      float s[32], dp[32];
+      mbar_wait(full + st, (i / NS) & 1);
+      wgmma_fence();
+      Wgmma<64>::ss_init(s, k_rows, q_k);
+#pragma unroll
+      for (int kc = 1; kc < C::KC; ++kc)
+        Wgmma<64>::ss(s, k_rows + ((kc >> 2) * BK * 8 + (kc & 3) * 2),
+                      q_k + ((kc >> 2) * BQ * 8 + (kc & 3) * 2));
+      wgmma_commit();
+      Wgmma<64>::ss_init(dp, v_rows, do_k);
+#pragma unroll
+      for (int kc = 1; kc < C::KC; ++kc)
+        Wgmma<64>::ss(dp, v_rows + ((kc >> 2) * BK * 8 + (kc & 3) * 2),
+                      do_k + ((kc >> 2) * BQ * 8 + (kc & 3) * 2));
+      wgmma_commit();
+
+      // does any (key, row) of this warpgroup's keys and this tile fall
+      // outside the mask?
+      const bool masked = kw0 + 64 > Sk || (causal && kw0 + 63 > q0) ||
+                          (window > 0 && q0 + BQ - 1 - kw0 >= window);
+      const float* lse_t = slse + st * BQ;
+      const float* del_t = sdel + st * BQ;
+      wgmma_wait<1>();
+      fence_regs(s);
+#pragma unroll
+      for (int n = 0; n < BQ / 8; ++n) {
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_t + 8 * n + cq);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = 4 * n + e;
+          float p = exp2_approx(s[j] * scale_log2 - ((e & 1) ? l2.y : l2.x));
+          if (masked) {
+            const int key = kw0 + rk0 + 8 * (e >> 1);
+            const int row = q0 + 8 * n + cq + (e & 1);
+            if (!(key < Sk && (!causal || row >= key) &&
+                  (window <= 0 || row - key < window)))
+              p = 0.f;
+          }
+          s[j] = p;
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(dp);
+#pragma unroll
+      for (int n = 0; n < BQ / 8; ++n) {
+        const float2 d2 = *reinterpret_cast<const float2*>(del_t + 8 * n + cq);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = 4 * n + e;
+          dp[j] = s[j] * (dp[j] - ((e & 1) ? d2.y : d2.x));
+        }
+      }
+      // P^T and dS^T as the A operand of m64nNk16 (as the forward packs p)
+      uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          pa[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+          da[kk][e] = pack_bf16(dp[8 * kk + 2 * e], dp[8 * kk + 2 * e + 1]);
+        }
+      // dS^T into shared memory, rows = keys, 128-byte swizzled: the A
+      // operand of dS K.  Register da[kk][e] holds row rk0 + 8 (e & 1),
+      // columns 8 (2 kk + (e >> 1)) + cq and the next.
+      uint8_t* ds_t = sds + (i & 1) * C::DS_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int R = 64 * w + rk0 + 8 * (e & 1);
+          const int chunk = (2 * kk + (e >> 1)) ^ (R & 7);
+          *reinterpret_cast<uint32_t*>(ds_t + R * 128 + chunk * 16 + cq * 2) =
+              da[kk][e];
+        }
+      fence_proxy_async();
+      bar_sync(1, 256);                    // both halves of dS^T written
+
+      // dV += P^T dO and dK += dS^T Q, then dQ[:, atom w] = dS K, each
+      // waited for before the next (the dQ slice takes the registers that
+      // P^T and dS^T leave)
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        Wgmma<D>::rs(dva, pa[kk], do_mn + kk * 128);
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        Wgmma<D>::rs(dka, da[kk], q_mn + kk * 128);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dva);
+      fence_regs(dka);
+      fence_regs(pa);
+      fence_regs(da);
+      mbar_arrive(empty + st);
+      // at D = 64 one warpgroup computes dQ: its one column atom
+      if (NA == 2 || w == 0) {
+        const uint64_t ds_mn = desc(smem_u32(ds_t), BK * 128, 1024);
+        float dq[32];
+        wgmma_fence();
+        Wgmma<64>::ss_tt_init(dq, ds_mn, k_cols);
+#pragma unroll
+        for (int kk = 1; kk < BK / 16; ++kk)
+          Wgmma<64>::ss_tt(dq, ds_mn + kk * 128, k_cols + kk * 128);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dq);
+        // dQ's slice into shared memory in the accumulator's own order
+        // (register 4 i + e of thread t at float4 i * 128 + t), then one
+        // bulk reduce-add into the f32 accumulator
+        float4* dst = reinterpret_cast<float4*>(sdq + w * BQ * 64);
+#pragma unroll
+        for (int i4 = 0; i4 < 8; ++i4)
+          dst[i4 * 128 + t] = make_float4(dq[4 * i4], dq[4 * i4 + 1],
+                                          dq[4 * i4 + 2], dq[4 * i4 + 3]);
+        fence_proxy_async();
+        bar_sync(2 + w, 128);
+        if (t == 0)
+          bulk_reduce_add(
+              dq_acc + ((((int64_t)b * H + h) * n_qt + qt) * NA + w) * BQ * 64,
+              sdq + w * BQ * 64, C::DQ_BYTES);
+      }
+    }
+    if (t == 0) bulk_wait();
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = kw0 + rk0 + 8 * r;
+      if (key < Sk) {
+        __nv_bfloat16* krow = dk + b * dk_sb + kvh * dk_sh + key * dk_ss;
+        __nv_bfloat16* vrow = dv + b * dv_sb + kvh * dv_sh + key * dv_ss;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          *reinterpret_cast<__nv_bfloat162*>(krow + 8 * n + cq) =
+              __floats2bfloat162_rn(dka[4 * n + 2 * r] * scale,
+                                    dka[4 * n + 2 * r + 1] * scale);
+          *reinterpret_cast<__nv_bfloat162*>(vrow + 8 * n + cq) =
+              __floats2bfloat162_rn(dva[4 * n + 2 * r],
+                                    dva[4 * n + 2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
+// dq = scale * the accumulator of one q tile of one head: read in its
+// register order (see above), transposed through shared memory, written as
+// 16-byte row chunks
+template <int D>
+__global__ void __launch_bounds__(256) fa_bwd_dq_kernel(
+    const float* __restrict__ dq_acc, __nv_bfloat16* __restrict__ dq,
+    int64_t sb, int64_t sh, int64_t ss, int Sq, int n_qt, float scale) {
+  using C = BwdCfg<D>;
+  constexpr int BQ = C::BQ, W = C::DP + 4;   // padded rows
+  __shared__ float tile[BQ * W];
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const float4* src = reinterpret_cast<const float4*>(
+      dq_acc + (((int64_t)b * gridDim.y + h) * n_qt + qt) * C::NA * BQ * 64);
+  for (int f = threadIdx.x; f < C::NA * 8 * 128; f += 256) {
+    const int t = f & 127, i = (f >> 7) & 7, a = f >> 10;
+    const int r = 16 * (t >> 5) + ((t & 31) >> 2);
+    const int col = 64 * a + 8 * i + 2 * (t & 3);
+    const float4 x = src[f];
+    *reinterpret_cast<float2*>(tile + r * W + col) = make_float2(x.x, x.y);
+    *reinterpret_cast<float2*>(tile + (r + 8) * W + col) =
+        make_float2(x.z, x.w);
+  }
+  __syncthreads();
+  __nv_bfloat16* base = dq + b * sb + h * sh;
+  for (int c = threadIdx.x; c < BQ * (D / 8); c += 256) {
+    const int r = c / (D / 8), col = 8 * (c % (D / 8));
+    const int row = qt * BQ + r;
+    if (row >= Sq) continue;
+    const float* x = tile + r * W + col;
+    uint4 out;
+    uint32_t* o = reinterpret_cast<uint32_t*>(&out);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      o[e] = pack_bf16(x[2 * e] * scale, x[2 * e + 1] * scale);
+    *reinterpret_cast<uint4*>(base + row * ss + col) = out;
+  }
+}
+
+template <int D>
+int launch_bwd(const void* const* p, int B, int H, int KV, int Sq, int Sk,
+               const int64_t* st, int causal, int window, float scale,
+               cudaStream_t stream) {
+  using C = BwdCfg<D>;
+  // p: q, k, v, o, dout, lse, dq, dk, dv, dq_acc, lse2, delta
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      fa_bwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)C::SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  CUtensorMap tq, tk, tv, tdo;
+  int err = make_map(&tq, p[0], B, H, Sq, D, st, C::BQ);
+  if (!err) err = make_map(&tk, p[1], B, KV, Sk, D, st + 3, C::BK);
+  if (!err) err = make_map(&tv, p[2], B, KV, Sk, D, st + 6, C::BK);
+  if (!err) err = make_map(&tdo, p[4], B, H, Sq, D, st + 12, C::BQ);
+  if (err) return err;
+  using bf = __nv_bfloat16;
+  const int n_qt = (Sq + C::BQ - 1) / C::BQ;
+  float* lse2 = static_cast<float*>(const_cast<void*>(p[10]));
+  float* delta = static_cast<float*>(const_cast<void*>(p[11]));
+  float* acc = static_cast<float*>(const_cast<void*>(p[9]));
+  fa_bwd_prep_kernel<D><<<dim3(n_qt, H, B), 256, 0, stream>>>(
+      static_cast<const bf*>(p[3]), st[9], st[10], st[11],
+      static_cast<const bf*>(p[4]), st[12], st[13], st[14],
+      static_cast<const float*>(p[5]), lse2, delta, acc, Sq, n_qt);
+  fa_bwd_kernel<D><<<dim3((Sk + C::BK - 1) / C::BK, KV, B), 384, C::SMEM,
+                     stream>>>(
+      tq, tk, tv, tdo, lse2, delta, acc,
+      static_cast<bf*>(const_cast<void*>(p[7])), st[18], st[19], st[20],
+      static_cast<bf*>(const_cast<void*>(p[8])), st[21], st[22], st[23],
+      H / KV, Sq, Sk, n_qt, causal, window, scale, scale * LOG2E);
+  fa_bwd_dq_kernel<D><<<dim3(n_qt, H, B), 256, 0, stream>>>(
+      acc, static_cast<bf*>(const_cast<void*>(p[6])), st[15], st[16], st[17],
+      Sq, n_qt, scale);
+  return (int)cudaGetLastError();
+}
+
 
 }  // namespace wgmma_route
 
@@ -849,16 +1382,17 @@ extern "C" {
 // The "fma" route: f32 at any compiled head_dim; bf16 at the head dims the
 // wgmma route does not take (16, 32).
 int repro_flash_attention_fwd(const void* q, const void* k, const void* v,
-                              void* o, int dtype, int B, int H, int KV,
-                              int Sq, int Sk, int D, const int64_t* strides,
-                              int causal, int window, float scale,
-                              void* stream) {
+                              void* o, void* lse, int dtype, int B, int H,
+                              int KV, int Sq, int Sk, int D,
+                              const int64_t* strides, int causal, int window,
+                              float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dtype == repro::BF16) {
 #define FA_FMA_BF16_CASE(DV)                                             \
   case DV:                                                               \
     return fma_route::launch<__nv_bfloat16, DV>(                         \
-        q, k, v, o, B, H, KV, Sq, Sk, strides, causal, window, scale, s);
+        q, k, v, o, l, B, H, KV, Sq, Sk, strides, causal, window, scale, s);
     switch (D) {
       FA_FMA_BF16_CASE(16)
       FA_FMA_BF16_CASE(32)
@@ -866,7 +1400,7 @@ int repro_flash_attention_fwd(const void* q, const void* k, const void* v,
 #undef FA_FMA_BF16_CASE
   } else if (dtype == repro::F32) {
     REPRO_DISPATCH_D(D, return fma_route::launch<float, kD>(
-        q, k, v, o, B, H, KV, Sq, Sk, strides, causal, window, scale, s);)
+        q, k, v, o, l, B, H, KV, Sq, Sk, strides, causal, window, scale, s);)
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -875,15 +1409,16 @@ int repro_flash_attention_fwd(const void* q, const void* k, const void* v,
 // above; the b/h/s strides of q, k and v are multiples of 8 elements and
 // the bases 16-byte aligned (TMA's rule; the Python wrapper checks).
 int repro_flash_attention_wgmma_fwd(const void* q, const void* k,
-                                    const void* v, void* o, int B, int H,
-                                    int KV, int Sq, int Sk, int D,
+                                    const void* v, void* o, void* lse, int B,
+                                    int H, int KV, int Sq, int Sk, int D,
                                     const int64_t* strides, int causal,
                                     int window, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
 #define FA_WGMMA_CASE(DV)                                                 \
   case DV:                                                                \
-    return wgmma_route::launch<DV>(q, k, v, o, B, H, KV, Sq, Sk, strides, \
-                                   causal, window, scale, s);
+    return wgmma_route::launch<DV>(q, k, v, o, l, B, H, KV, Sq, Sk,       \
+                                   strides, causal, window, scale, s);
   switch (D) {
     FA_WGMMA_CASE(64)
     FA_WGMMA_CASE(80)
@@ -893,6 +1428,32 @@ int repro_flash_attention_wgmma_fwd(const void* q, const void* k,
     FA_WGMMA_CASE(256)
   }
 #undef FA_WGMMA_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// The backward of the "wgmma" route: bf16, D in {64, 80, 96, 112, 128}.
+// Pointers: q, k, v, o, dout, lse (f32 (B, H, Sq)), dq, dk, dv, then the
+// f32 scratch the wrapper allocates: the dQ accumulator (B*H*n_qt*NA*4096),
+// the scaled LSE and Delta (B*H*n_qt*64 each), n_qt = ceil(Sq / 64), NA = 1
+// at D = 64 and 2 above.  Element strides (b, h, s) of q, k, v, o, dout,
+// dq, dk, dv; q, k, v and dout as TMA takes them (see the forward).
+int repro_flash_attention_wgmma_bwd(const void* const* ptrs, int B, int H,
+                                    int KV, int Sq, int Sk, int D,
+                                    const int64_t* strides, int causal,
+                                    int window, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define FA_BWD_CASE(DV)                                                  \
+  case DV:                                                               \
+    return wgmma_route::launch_bwd<DV>(ptrs, B, H, KV, Sq, Sk, strides,  \
+                                       causal, window, scale, s);
+  switch (D) {
+    FA_BWD_CASE(64)
+    FA_BWD_CASE(80)
+    FA_BWD_CASE(96)
+    FA_BWD_CASE(112)
+    FA_BWD_CASE(128)
+  }
+#undef FA_BWD_CASE
   return (int)cudaErrorInvalidValue;
 }
 

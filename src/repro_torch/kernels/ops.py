@@ -9,9 +9,13 @@ raises), its CPU implementation the kernel's plain version in
 Every op but flash-decode has a backward, as every op of the reference is
 a ``jax.custom_vjp`` (``src/repro/kernels/ops.py``): it recomputes the
 reference's plain math on the saved inputs under ``torch.enable_grad()``
-and returns ``torch.autograd.grad`` of it.  There is no backward kernel,
-in the reference either.  Flash-decode serves only; it raises if asked
-for a gradient.
+and returns ``torch.autograd.grad`` of it.  Flash-attention's is the one
+departure: where :func:`~repro_torch.kernels.flash_attention.bwd_route`
+says ``"wgmma"`` (bf16 on the card at the served head dims but 256) its
+gradient is the hand backward kernel, its own operator
+``repro_torch::flash_attention_bwd``, from the log-sum-exp that the
+forward returns beside its output; the reference has no backward kernel.
+Flash-decode serves only; it raises if asked for a gradient.
 
 Each op also has a fake implementation (an empty output of the right
 shape and dtype, for ``FakeTensorMode``) and a flop formula for
@@ -24,7 +28,8 @@ sharding rule (``runtime.sharding.on_shards``): its tensors may stay sharded on 
 batch dim and on one independent dim (heads; rglru's features), on the
 same mesh axes in every input, and each other dim is gathered first.  The
 hand kernel (or, on the CPU, its plain version) then runs on each rank's
-local shard, and the op's plain backward on the same shards.  Heads stay
+local shard, and the op's backward (its route's) on the same shards;
+flash-attention's log-sum-exp is sharded as its output.  Heads stay
 sharded only when the kv heads are sharded on the same axis (each local q
 head then finds its kv head, ``h // G``, in the local shard), so a GQA
 layout with ``num_kv_heads`` indivisible by the axis, or K/V sharded on
@@ -36,7 +41,9 @@ import torch
 from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import ref as R
-from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.flash_attention import (bwd_route,
+                                                 flash_attention_bwd,
+                                                 flash_attention_fwd)
 from repro_torch.kernels.flash_decode import flash_decode_fwd
 from repro_torch.kernels.mlstm import mlstm_fwd
 from repro_torch.kernels.rglru import rglru_fwd
@@ -64,8 +71,9 @@ def _define(name: str, schema: str, *, cpu, cuda, fake, flops,
     its fake implementation (which also serves the meta device, and
     refuses every device without a kernel), its flop formula and, given
     the plain math ``backward(*tensors, *args)``, its gradient, which runs
-    in the tracer's span ``kernels.<name>.bwd`` (``runtime/trace.py``).
-    The schema lists the tensors first.  Returns the operator."""
+    in the tracer's span ``kernels.<name>.bwd`` (``runtime/trace.py``)
+    with the attribute ``route="plain"``.  The schema lists the tensors
+    first.  Returns the operator."""
     qual = f"repro_torch::{name}"
     torch.library.define(qual, schema)
     torch.library.impl(qual, "cpu", cpu)
@@ -87,7 +95,7 @@ def _define(name: str, schema: str, *, cpu, cuda, fake, flops,
         bwd = f"kernels.{name}.bwd"
 
         def grad(ctx, g):
-            with trace.span(bwd):
+            with trace.span(bwd, route="plain"):
                 return (*_vjp(lambda *ts: backward(*ts, *ctx.args),
                               ctx.saved_tensors, g), *[None] * len(ctx.args))
         torch.library.register_autograd(qual, grad,
@@ -131,27 +139,36 @@ def _heads_first(*ts):
 
 
 def _fa_cuda(q, k, v, causal, window, block_q):
-    return flash_attention_fwd(*_heads_first(q, k, v), causal=causal,
-                               window=window).transpose(1, 2)
+    out, lse = flash_attention_fwd(*_heads_first(q, k, v), causal=causal,
+                                   window=window, return_lse=True)
+    return out.transpose(1, 2), lse
 
 
 def _fa_cpu(q, k, v, causal, window, block_q):
-    return R.flash_attention_ref(*_heads_first(q, k, v), causal=causal,
-                                 window=window).transpose(1, 2)
+    out, lse = R.flash_attention_ref(*_heads_first(q, k, v), causal=causal,
+                                     window=window, return_lse=True)
+    return out.transpose(1, 2), lse
 
 
 def _fa_plain(q, k, v, causal, window, block_q):
-    """The backward's math: the reference's ``_ref``, the q-chunked plain
-    attention at the clause's ``block_q``.  That path is causal only (the
-    reference's ``_ref`` is causal whatever it is asked); a non-causal call
-    differentiates ``ref.flash_attention_ref`` instead, on every device."""
+    """The plain backward's math: the reference's ``_ref``, the q-chunked
+    plain attention at the clause's ``block_q``.  That path is causal only
+    (the reference's ``_ref`` is causal whatever it is asked); a non-causal
+    call differentiates ``ref.flash_attention_ref`` instead, on every
+    device."""
     if not causal:
-        return _fa_cpu(q, k, v, causal, window, block_q)
+        return R.flash_attention_ref(*_heads_first(q, k, v), causal=False,
+                                     window=window).transpose(1, 2)
     from repro_torch.models.attention import chunked_attention
     pos_q = torch.arange(q.shape[1], device=q.device)
     pos_k = torch.arange(k.shape[1], device=q.device)
     return chunked_attention(q, k, v, pos_q=pos_q, pos_k=pos_k,
                              window=window, q_chunk=block_q)
+
+
+def _fa_fake(q, *args):
+    B, S, H, _ = q.shape
+    return torch.empty_like(q), q.new_empty((B, H, S), dtype=torch.float32)
 
 
 def _fa_flops(q_shape, k_shape, v_shape, causal, window, block_q, *args,
@@ -162,25 +179,92 @@ def _fa_flops(q_shape, k_shape, v_shape, causal, window, block_q, *args,
 
 _FLASH_ATTENTION = _define(
     "flash_attention", "(Tensor q, Tensor k, Tensor v, bool causal, "
-    "int window, int block_q) -> Tensor", cpu=_fa_cpu, cuda=_fa_cuda,
-    fake=lambda q, *args: torch.empty_like(q), flops=_fa_flops,
-    backward=_fa_plain)
+    "int window, int block_q) -> (Tensor, Tensor)", cpu=_fa_cpu,
+    cuda=_fa_cuda, fake=_fa_fake, flops=_fa_flops)
+
+
+def _fa_bwd_cuda(dout, q, k, v, out, lse, causal, window):
+    # the cotangent comes from autograd in any layout (expanded, say)
+    dq, dk, dv = flash_attention_bwd(
+        *_heads_first(dout.contiguous(), q, k, v, out), lse, causal=causal,
+        window=window)
+    return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
+
+
+def _fa_bwd_cpu(dout, q, k, v, out, lse, causal, window):
+    """The kernel's arithmetic in plain f32 (``ref.flash_attention_bwd_ref``);
+    the op's gradient on the CPU is the plain route's, not this."""
+    dq, dk, dv = R.flash_attention_bwd_ref(
+        *_heads_first(dout, q, k, v, out), lse, causal=causal, window=window)
+    return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
+
+
+def _fa_bwd_flops(dout_shape, q_shape, k_shape, v_shape, o_shape,
+                  lse_shape, causal, window, *args, **kwargs):
+    """The backward kernel's five products (S and dP recomputed, dV, dK,
+    dQ) over the pairs the mask keeps: 2.5 times the forward's."""
+    B, S, H, D = q_shape
+    return 10 * B * H * D * attention_pairs(S, k_shape[1], causal, window)
+
+
+def _fa_bwd_fake(dout, q, k, v, *args):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+_FLASH_ATTENTION_BWD = _define(
+    "flash_attention_bwd", "(Tensor dout, Tensor q, Tensor k, Tensor v, "
+    "Tensor out, Tensor lse, bool causal, int window) -> "
+    "(Tensor, Tensor, Tensor)", cpu=_fa_bwd_cpu, cuda=_fa_bwd_cuda,
+    fake=_fa_bwd_fake, flops=_fa_bwd_flops)
+
+
+def _fa_setup(ctx, inputs, output):
+    """The gradient's route, from what the forward saw; the output and its
+    log-sum-exp (not differentiable) are saved only for the kernel.  A
+    fake tensor's route is the card's: the dry run counts the backward its
+    program will run there."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    q, k, v, *ctx.args = inputs
+    device = "cuda" if isinstance(q, FakeTensor) else q.device.type
+    ctx.route = bwd_route(q.dtype, q.shape[-1], device)
+    ctx.save_for_backward(q, k, v,
+                          *(output if ctx.route != "plain" else ()))
+    ctx.mark_non_differentiable(output[1])
+
+
+def _fa_grad(ctx, g, _):
+    q, k, v, *saved = ctx.saved_tensors
+    causal, window, block_q = ctx.args
+    with trace.span("kernels.flash_attention.bwd", route=ctx.route):
+        if ctx.route == "plain":
+            grads = _vjp(lambda *ts: _fa_plain(*ts, causal, window,
+                                               block_q), (q, k, v), g)
+        else:
+            grads = _FLASH_ATTENTION_BWD(g, q, k, v, *saved, causal, window)
+    return (*grads, None, None, None)
+
+
+torch.library.register_autograd("repro_torch::flash_attention", _fa_grad,
+                                setup_context=_fa_setup)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     block_q: int = 512, block_k: int = 1024):
     """Model layout: q (B,S,H,D); k/v (B,S,KV,D) -> (B,S,H,D).
 
-    ``block_q``/``block_k`` are the clause's tile fields; the CUDA kernel
-    uses its own tiles and the plain version none, so neither reads them.
-    The backward differentiates the plain chunked attention at ``block_q``.
+    ``block_q``/``block_k`` are the clause's tile fields; the CUDA kernels
+    use their own tiles and the plain version none, so neither reads them.
+    The gradient is the backward kernel where ``bwd_route`` says
+    ``"wgmma"``, else the plain chunked attention's at ``block_q``.  The
+    op's log-sum-exp output (B,H,S) is kept for the backward and not
+    returned.
     """
     if _meshed(q, k, v):
         bh = (0, 2)
-        return on_shards(lambda *t: [_FLASH_ATTENTION(*t, causal, window,
-                                                       block_q)],
-                          [q, k, v], [bh] * 3, [bh])[0]
-    return _FLASH_ATTENTION(q, k, v, causal, window, block_q)
+        return on_shards(lambda *t: list(_FLASH_ATTENTION(*t, causal, window,
+                                                          block_q)),
+                          [q, k, v], [bh] * 3, [bh, (0, 1)])[0]
+    return _FLASH_ATTENTION(q, k, v, causal, window, block_q)[0]
 
 
 # --- flash decode --------------------------------------------------------------

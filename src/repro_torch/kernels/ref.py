@@ -11,24 +11,72 @@ import torch
 NEG_INF = -1e30
 
 
-def flash_attention_ref(q, k, v, *, causal=True, window=0):
-    """q: (B,H,Sq,D), k/v: (B,KV,Sk,D) -> (B,H,Sq,D). f32 math."""
+def _attention_mask(Sq, Sk, causal, window, device):
+    """(Sq, Sk) bool: which keys each query keeps, both at positions 0,
+    1, ... (causal: k <= q; window: q - k < window)."""
+    iq = torch.arange(Sq, device=device)[:, None]
+    ik = torch.arange(Sk, device=device)[None, :]
+    m = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+    if causal:
+        m &= iq >= ik
+    if window:
+        m &= iq - ik < window
+    return m
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=0,
+                        return_lse=False):
+    """q: (B,H,Sq,D), k/v: (B,KV,Sk,D) -> (B,H,Sq,D). f32 math.
+
+    With ``return_lse`` also each row's log-sum-exp (B,H,Sq) f32, as
+    ``m + log(max(l, 1e-30))`` of the scaled, masked scores (the kernels'
+    and :func:`flash_decode_ref`'s)."""
     B, H, Sq, D = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     G = H // KV
     qf = q.float().reshape(B, KV, G, Sq, D)
     s = torch.einsum("bkgqd,bksd->bkgqs", qf, k.float()) * (D ** -0.5)
-    iq = torch.arange(Sq, device=q.device)[:, None]
-    ik = torch.arange(Sk, device=q.device)[None, :]
-    m = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
-    if causal:
-        m &= iq >= ik
-    if window:
-        m &= iq - ik < window
+    m = _attention_mask(Sq, Sk, causal, window, q.device)
     s = torch.where(m, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bksd->bkgqd", p, v.float())
-    return o.reshape(B, H, Sq, D).to(q.dtype)
+    out = o.reshape(B, H, Sq, D).to(q.dtype)
+    if not return_lse:
+        return out
+    mx = s.amax(dim=-1)
+    l = torch.where(m, torch.exp(s - mx[..., None]), 0.0).sum(dim=-1)
+    return out, (mx + torch.log(l.clamp_min(1e-30))).reshape(B, H, Sq)
+
+
+def flash_attention_bwd_ref(dout, q, k, v, out, lse, *, causal=True,
+                            window=0, bf16_products=False):
+    """Gradients (dq, dk, dv) of :func:`flash_attention_ref` at cotangent
+    ``dout`` (like q), from its ``out`` and ``lse``, in the backward
+    kernel's arithmetic: f32 P = exp(S - lse), Delta = rowsum(dO * O),
+    dS = P (dP - Delta), dV = P^T dO, dK = scale dS^T Q, dQ = scale dS K.
+    With ``bf16_products`` P and dS are rounded to bf16 before their
+    products, as the kernel does.  Head-major layouts as the forward's;
+    results in the inputs' dtypes."""
+    B, H, Sq, D = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = D ** -0.5
+    qf = q.float().reshape(B, KV, G, Sq, D)
+    do = dout.float().reshape(B, KV, G, Sq, D)
+    kf, vf = k.float(), v.float()
+    m = _attention_mask(Sq, Sk, causal, window, q.device)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qf, kf) * scale
+    p = torch.where(m, torch.exp(s - lse.float().reshape(B, KV, G, Sq, 1)),
+                    0.0)
+    delta = (do * out.float().reshape(B, KV, G, Sq, D)).sum(-1, keepdim=True)
+    ds = p * (torch.einsum("bkgqd,bksd->bkgqs", do, vf) - delta)
+    if bf16_products:
+        p, ds = (t.to(torch.bfloat16).float() for t in (p, ds))
+    dv = torch.einsum("bkgqs,bkgqd->bksd", p, do)
+    dk = torch.einsum("bkgqs,bkgqd->bksd", ds, qf) * scale
+    dq = torch.einsum("bkgqs,bksd->bkgqd", ds, kf) * scale
+    return (dq.reshape(B, H, Sq, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def flash_decode_ref(q, k, v, pos, *, return_lse=False):

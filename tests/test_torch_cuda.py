@@ -6,7 +6,8 @@ Inputs come from a numpy seed; tolerances are those of
 tests/test_kernels.py: 2e-5 f32 and 2e-2 bf16 for attention, 1e-5 / 1e-4
 for rglru, 5e-4 / 5e-3 for mlstm, 1e-5 f32 and 2e-2 bf16 for rmsnorm.
 Gradients (every op but flash-decode is an autograd Function whose
-backward is autograd of the plain math) are held to the same tolerances.
+backward is autograd of the plain math, or flash-attention's backward
+kernel in bf16) are held to the same tolerances.
 """
 import dataclasses
 import statistics
@@ -23,6 +24,7 @@ from repro_torch.core.plan import uniform_plan
 from repro_torch.core.segment import fragment
 from repro_torch.core.tuner import ComParTuner
 from repro_torch.kernels import LAUNCHES, ops, ref, reset_launches
+from repro_torch.kernels.flash_attention import bwd_route as fa_bwd_route
 from repro_torch.kernels.flash_attention import route as fa_route
 from repro_torch.models.context import SegmentClause
 from repro_torch.models.model import model_specs
@@ -500,16 +502,30 @@ def _grad_case(name, rng, dev):
     launches, (atol, rtol))."""
     f32, bf16 = torch.float32, torch.bfloat16
     if name.startswith("flash_attention"):
-        dt, D, H, KV, window, causal = {
-            "flash_attention_fma": (f32, 128, 8, 2, 0, True),
-            "flash_attention_wgmma": (bf16, 128, 8, 2, 0, True),
+        dt, D, H, KV, window, causal, S = {
+            "flash_attention_fma": (f32, 128, 8, 2, 0, True, 300),
+            "flash_attention_wgmma": (bf16, 128, 8, 2, 0, True, 300),
             "flash_attention_wgmma_d256_window": (bf16, 256, 10, 1, 48,
-                                                  True),
-            "flash_attention_fma_non_causal": (f32, 128, 8, 2, 0, False),
+                                                  True, 300),
+            "flash_attention_fma_non_causal": (f32, 128, 8, 2, 0, False,
+                                               300),
             "flash_attention_wgmma_non_causal_window": (bf16, 128, 8, 2, 48,
-                                                        False),
+                                                        False, 300),
+            # granite-8b's train heads; starcoder2-3b's heads past their
+            # window (cut to 512)
+            "flash_attention_wgmma_granite": (bf16, 128, 32, 8, 0, True,
+                                              1024),
+            "flash_attention_wgmma_starcoder2_window": (bf16, 128, 24, 2,
+                                                        512, True, 1536),
+            # the other head dims of the backward kernel, S ragged (not a
+            # multiple of its 64-row q tile or 128-key k tile)
+            "flash_attention_wgmma_d64": (bf16, 64, 8, 8, 0, True, 333),
+            "flash_attention_wgmma_d80": (bf16, 80, 8, 2, 48, True, 333),
+            "flash_attention_wgmma_d96": (bf16, 96, 8, 8, 0, True, 333),
+            "flash_attention_wgmma_d112": (bf16, 112, 16, 2, 0, True, 333),
+            "flash_attention_wgmma_one_row": (bf16, 128, 8, 2, 0, True, 1),
         }[name]
-        xs = [_t(rng, (1, 300, h, D), dt, dev) for h in (H, KV, KV)]
+        xs = [_t(rng, (1, S, h, D), dt, dev) for h in (H, KV, KV)]
 
         def plain(q, k, v):
             return ref.flash_attention_ref(
@@ -539,26 +555,79 @@ def _grad_case(name, rng, dev):
 @pytest.mark.parametrize("name", [
     "flash_attention_fma", "flash_attention_wgmma",
     "flash_attention_wgmma_d256_window", "flash_attention_fma_non_causal",
-    "flash_attention_wgmma_non_causal_window", "rglru", "mlstm",
-    "rmsnorm_f32", "rmsnorm_bf16"])
+    "flash_attention_wgmma_non_causal_window",
+    "flash_attention_wgmma_granite",
+    "flash_attention_wgmma_starcoder2_window", "flash_attention_wgmma_d64",
+    "flash_attention_wgmma_d80", "flash_attention_wgmma_d96",
+    "flash_attention_wgmma_d112", "flash_attention_wgmma_one_row", "rglru",
+    "mlstm", "rmsnorm_f32", "rmsnorm_bf16"])
 def test_op_grads_cuda_vs_plain_autograd(dev, name):
-    """The kernel's Function against autograd of its plain version on the
-    same card inputs: the forward launches the kernel once and the
-    backward launches nothing."""
+    """The kernel's Function against autograd of its plain version (f32
+    math) on the same card inputs: the forward launches the kernel once;
+    the backward launches flash-attention's backward kernel once where
+    ``bwd_route`` says ``"wgmma"`` (bf16 at D <= 128) and nothing else.
+
+    The backward kernel rounds P and dS to bf16 before their products (as
+    the forward rounds p), 2^-9 relative a term, and writes bf16: inside
+    the bf16 tolerance of 2e-2."""
     rng = np.random.default_rng(9)
     op, plain, xs, kernel, (atol, rtol) = _grad_case(name, rng, dev)
     xs = [x.requires_grad_() for x in xs]
-    n0 = LAUNCHES[kernel]
+    n0, b0 = LAUNCHES[kernel], LAUNCHES["flash_attention_bwd"]
     out = op(*xs)
     ct = _t(rng, tuple(out.shape), out.dtype, dev)
     got = torch.autograd.grad(out, xs, ct)
     torch.cuda.synchronize()
     assert LAUNCHES[kernel] == n0 + 1
+    q = xs[0]
+    kernel_bwd = (kernel == "flash_attention"
+                  and fa_bwd_route(q.dtype, q.shape[-1]) == "wgmma")
+    assert kernel_bwd == (q.dtype == torch.bfloat16 and name.startswith(
+        "flash_attention") and q.shape[-1] <= 128)
+    assert LAUNCHES["flash_attention_bwd"] == b0 + kernel_bwd
     want = torch.autograd.grad(plain(*xs), xs, ct)
     for i, (g, w) in enumerate(zip(got, want)):
         assert g.dtype == w.dtype and bool(torch.isfinite(g).all())
         torch.testing.assert_close(g.float(), w.float(), atol=atol,
                                    rtol=rtol, msg=lambda m: f"input {i}: {m}")
+
+
+@pytest.mark.parametrize("Sq,Sk,causal,window,D", [
+    (300, 300, True, 0, 128), (100, 300, True, 0, 128),
+    (300, 100, True, 48, 80), (200, 200, False, 0, 64),
+    (257, 257, True, 130, 112), (200, 200, False, 48, 96)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_cuda_lse_and_bwd_kernel(dev, Sq, Sk, causal, window,
+                                                 D, dtype):
+    """The forward's log-sum-exp on both routes against the plain one; in
+    bf16 the backward kernel against its arithmetic emulated in f32
+    (``ref.flash_attention_bwd_ref`` with P and dS rounded to bf16), on
+    the kernel's own output and log-sum-exp: Sq != Sk, non-causal, ragged
+    tiles."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_fwd)
+    rng = np.random.default_rng(11)
+    q, k, v = (_t(rng, (1, S, h, D), dtype, dev).transpose(1, 2)
+               for S, h in ((Sq, 8), (Sk, 2), (Sk, 2)))
+    out, lse = flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                   return_lse=True)
+    _, want = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                      return_lse=True)
+    torch.testing.assert_close(lse, want, atol=1e-3, rtol=1e-4)
+    if dtype != torch.bfloat16:
+        return
+    dout = _t(rng, (1, Sq, 8, D), dtype, dev).transpose(1, 2)
+    n0 = LAUNCHES["flash_attention_bwd"]
+    got = flash_attention_bwd(dout, q, k, v, out, lse, causal=causal,
+                              window=window)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention_bwd"] == n0 + 1
+    emul = ref.flash_attention_bwd_ref(dout, q, k, v, out, lse,
+                                       causal=causal, window=window,
+                                       bf16_products=True)
+    for g, w in zip(got, emul):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        _close(g, w, dtype)
 
 
 def test_flash_decode_cuda_raises_under_grad(dev):
@@ -597,6 +666,8 @@ def test_train_grads_cuda_plan_match_plain_plan(dev, dtype):
     _, _, cuda = make_grads(cfg, _plan(cfg, "cuda"), device=dev)(params,
                                                                  batch)
     assert LAUNCHES["flash_attention"] == cfg.num_layers
+    assert LAUNCHES["flash_attention_bwd"] == (
+        cfg.num_layers if dtype == "bfloat16" else 0)
     _, _, plain = make_grads(cfg, _plan(cfg, "plain"), device=dev)(params,
                                                                    batch)
     for g, w in zip(tree_leaves(cuda), tree_leaves(plain)):
@@ -607,7 +678,8 @@ def test_train_grads_cuda_plan_match_plain_plan(dev, dtype):
 def test_train_step_spans_on_the_card(dev):
     """The program's tracer on one granite-8b step (full width, 2 layers,
     bf16, B=1, S=1024) under a cuda plan: every flash-attention backward
-    span sits under ``train.backward`` with device time, and the device ms
+    span sits under ``train.backward`` with device time and the backward
+    kernel's route, and the device ms
     of ``train.forward`` and ``train.backward`` come within 5 % of
     ``train.grads``'s."""
     from repro_torch.runtime import trace
@@ -635,7 +707,7 @@ def test_train_step_spans_on_the_card(dev):
     assert len(fa) == cfg.num_layers
     for s in fa:
         assert by_id[s["parent"]]["name"] == "train.backward"
-        assert s["device_ms"] > 0
+        assert s["device_ms"] > 0 and s["attrs"]["route"] == "wgmma"
     assert one["train.step"]["counters"]["alloc.device_mallocs"] >= 0
     parts = one["train.forward"]["device_ms"] + \
         one["train.backward"]["device_ms"]

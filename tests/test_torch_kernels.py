@@ -98,6 +98,147 @@ def test_flash_attention_route():
             "wgmma" if D in WGMMA_HEAD_DIMS else "fma")
 
 
+def test_flash_attention_bwd_route():
+    """Where the gradient runs: the backward kernel for bf16 on the card at
+    every served head dim but 256; the plain backward for f32 (the fma
+    route), D=256 and the CPU.  No arch name or knob enters."""
+    from repro_torch.kernels.flash_attention import (BWD_HEAD_DIMS,
+                                                     WGMMA_HEAD_DIMS,
+                                                     bwd_route)
+    assert set(BWD_HEAD_DIMS) == set(WGMMA_HEAD_DIMS) - {256}
+    for D in (64, 80, 96, 112, 128):
+        assert bwd_route(torch.bfloat16, D) == "wgmma"
+        assert bwd_route(torch.bfloat16, D, "cpu") == "plain"
+        assert bwd_route(torch.float32, D) == "plain"
+    for D in (16, 32, 256):
+        assert bwd_route(torch.bfloat16, D) == "plain"
+
+
+def test_flash_attention_fakes_on_meta():
+    """The fake implementations (what the dry run's fake tensors see): the
+    forward's output like q and its log-sum-exp (B,H,S) f32; the backward
+    op's gradients like q, k and v."""
+    B, S, H, KV, D = 2, 48, 8, 2, 128
+    q = torch.empty((B, S, H, D), dtype=torch.bfloat16, device="meta")
+    k = torch.empty((B, S, KV, D), dtype=torch.bfloat16, device="meta")
+    out, lse = ops._fa_fake(q, k, k, True, 0, 512)
+    assert (out.shape, out.dtype, out.device.type) == (q.shape, q.dtype,
+                                                       "meta")
+    assert (lse.shape, lse.dtype) == ((B, H, S), torch.float32)
+    grads = ops._fa_bwd_fake(out, q, k, k, out, lse, True, 0)
+    assert [(g.shape, g.dtype) for g in grads] == [
+        (t.shape, t.dtype) for t in (q, k, k)]
+
+
+@pytest.mark.parametrize("window", [0, 24])
+def test_flash_attention_bwd_flops(window):
+    """The backward op's flop formula: its five products, 2.5 times the
+    forward's over the same kept pairs."""
+    from torch.utils.flop_counter import FlopCounterMode
+    rng = np.random.default_rng(4)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 70, h, 32)).astype(
+        np.float32)) for h in (4, 2, 2))
+    with FlopCounterMode(display=False) as fc:
+        out, lse = torch.ops.repro_torch.flash_attention(q, k, v, True,
+                                                         window, 64)
+        torch.ops.repro_torch.flash_attention_bwd(out, q, k, v, out, lse,
+                                                  True, window)
+    counts = {str(op): n for op, n in fc.get_flop_counts()["Global"].items()}
+    fwd = counts["repro_torch.flash_attention"]
+    assert fwd == 4 * 4 * 32 * ops.attention_pairs(70, 70, True, window)
+    assert counts["repro_torch.flash_attention_bwd"] == 2.5 * fwd
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_dry_run_counts_the_backward_the_card_runs(dtype):
+    """The sweep's dry run (fake tensors on the CPU) costs a ``kernel:
+    cuda`` train program with the backward the card will run: in bf16 at
+    D=128 the backward kernel's op, 10·B·H·D·pairs a layer; in f32 the
+    plain backward's products, and no backward op."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch, get_shape
+    from repro_torch.core.combinator import Combination
+    from repro_torch.core.executor import DryRunExecutor
+    from repro_torch.core.segment import fragment
+    from repro_torch.models.context import SegmentClause
+    cfg = dataclasses.replace(get_arch("granite-8b").smoke(), head_dim=128,
+                              dtype=dtype)
+    shape = get_shape("train_4k").smoke()
+    seg = next(s for s in fragment(cfg) if s.kind == "stack")
+    combo = Combination("fsdp", frozenset(), SegmentClause(kernel="cuda"))
+    flops = DryRunExecutor().count(cfg, shape, seg, combo).flops_by_op()
+    per_layer = (shape.global_batch * cfg.num_heads * 128 *
+                 ops.attention_pairs(shape.seq_len, shape.seq_len, True, 0))
+    layers = seg.pattern.count("attn") * seg.repeats
+    assert flops["flash_attention"] == 4 * per_layer * layers
+    if dtype == "bfloat16":
+        assert flops["flash_attention_bwd"] == 10 * per_layer * layers
+        assert "bmm" not in flops
+    else:
+        assert "flash_attention_bwd" not in flops and flops["bmm"] > 0
+
+
+def test_flash_attention_bwd_span_route_plain():
+    """On the CPU the op's gradient is the plain backward, and its span
+    says so."""
+    from repro_torch.runtime import trace
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 40, h, 16)).astype(
+        np.float32)).requires_grad_() for h in (4, 2, 2))
+    trace.clear()
+    trace.enable()
+    try:
+        n0 = LAUNCHES["flash_attention_bwd"]
+        out = ops.flash_attention(q, k, v, window=16, block_q=16)
+        torch.autograd.grad(out.sum(), (q, k, v))
+        spans = trace.export()
+    finally:
+        trace.disable()
+        trace.clear()
+    fa = [s for s in spans if s["name"] == "kernels.flash_attention.bwd"]
+    assert [s["attrs"] for s in fa] == [{"route": "plain"}]
+    assert LAUNCHES["flash_attention_bwd"] == n0
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 24),
+                                           (False, 24)])
+def test_flash_attention_bwd_arithmetic_matches_reference_vjp(causal,
+                                                             window):
+    """The backward kernel's arithmetic (``ref.flash_attention_bwd_ref``
+    from the forward's output and log-sum-exp, as the CPU op runs it)
+    against the JAX package's gradient of its op (the vjp of its plain
+    attention), f32; then with P and dS rounded to bf16 as the kernel
+    rounds them, inside the bf16 tolerance.  The reference's op
+    differentiates its causal ``_ref`` whatever it is asked, so the
+    non-causal case is held to autograd of the plain attention instead
+    (what the port's plain backward differentiates there)."""
+    rng = np.random.default_rng(6)
+    B, S, H, KV, D = 1, 80, 4, 2, 32
+    pairs = [_pair(rng, (B, S, h, D), "float32") for h in (H, KV, KV, H)]
+    (jq, tq), (jk, tk), (jv, tv), (jg, tg) = pairs
+    if causal:
+        _, vjp = jax.vjp(lambda *a: jops.flash_attention(
+            *a, causal=causal, window=window, block_q=16), jq, jk, jv)
+        want = vjp(jg)
+    else:
+        xs = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+        want = torch.autograd.grad(ref.flash_attention_ref(
+            *[x.transpose(1, 2) for x in xs], causal=False,
+            window=window).transpose(1, 2), xs, tg)
+    out, lse = torch.ops.repro_torch.flash_attention(tq, tk, tv, causal,
+                                                     window, 16)
+    got = torch.ops.repro_torch.flash_attention_bwd(tg, tq, tk, tv, out, lse,
+                                                    causal, window)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(_np(g), _np(w), atol=1e-4, rtol=1e-4)
+    hm = [t.transpose(1, 2) for t in (tg, tq, tk, tv, out)]
+    rounded = ref.flash_attention_bwd_ref(*hm, lse, causal=causal,
+                                          window=window, bf16_products=True)
+    for g, w in zip(rounded, want):
+        _close(g.transpose(1, 2), w, "bfloat16")
+
+
 def _attention_bf16_p(q, k, v, *, window, block_k):
     """The wgmma route's arithmetic, emulated: f32 scores, online softmax
     over key tiles of ``block_k``, p rounded to bf16 before P V (products
